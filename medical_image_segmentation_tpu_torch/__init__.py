@@ -9,13 +9,21 @@ the CSV logger) is imported from the JAX package as it is.
 
 Layers (bottom-up):
   csrc/     hand-written Hopper kernels (CUDA C++, plain C interface).
-  ops/      two-view augmentation (plain torch + the fused kernel's
-            wrapper), BYOL loss, LARS, LR/EMA schedules.
-  models/   ResNet family, MLP heads, BYOL network, flax-semantics BatchNorm.
-  core/     flax → torch weight converter.
-  data/     SSL datamodules over the shared Loader, pinned double-buffered
-            host→device feed.
-  train/    BYOL task and the ``mis-train-ssl-torch`` entry point.
+  ops/      two-view and paired segmentation augmentation (plain torch +
+            the fused kernel's wrapper), BYOL loss, Dice/IoU, LARS, LR/EMA
+            schedules.
+  models/   ResNet family (with the skip pyramid), MLP heads, BYOL network,
+            U-Net, flax-semantics BatchNorm.
+  core/     flax → torch weight converter, torch checkpoints and the
+            BYOL → U-Net encoder graft.
+  data/     SSL and Decathlon datamodules over the shared loaders, pinned
+            double-buffered host→device feed.
+  eval/     2D sliding-window inference.
+  utils/    PNG writer, overlay grid.
+  serve.py  the serving function (uint8 batch → masks).
+  train/    BYOL and segmentation tasks, preemption guard, and the
+            ``mis-train-ssl-torch``, ``mis-train-segmentation-torch`` and
+            ``mis-predict-torch`` entry points.
 """
 
 __version__ = "0.1.0"

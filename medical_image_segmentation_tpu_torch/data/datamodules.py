@@ -1,6 +1,6 @@
-"""SSL datamodule registry over the shared MIS ``Loader``.
+"""SSL and segmentation datamodule registry over the shared MIS loaders.
 
-Port of ``data/datamodules.py:40-214`` (the SSL half). The JAX module cannot
+Port of ``data/datamodules.py:40-276``. The JAX module cannot
 be imported here: it pulls in JAX through ``ops/augment.py``. The stores,
 the C++ decode ``Loader`` and the ``Registry`` are the JAX package's own,
 imported as they are. Store paths come from the same environment variables,
@@ -8,7 +8,9 @@ stats and crop sizes are the same constants, and ``view_configs`` scales
 the canonical views to the store's bit depth in the same way.
 
 Radiology datamodules stay 1-channel end to end; CIFAR/ImageNet are RGB.
-The Decathlon segmentation datamodules come with the segmentation slice.
+The four Decathlon datamodules serve paired image/mask batches from the
+paired raw stores (``PairedLoader``) or a PNG directory
+(``DecathlonLoader``), both the JAX package's own host code.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import os
 from typing import Optional, Tuple
 
 from medical_image_segmentation_tpu.core.registry import Registry
-from medical_image_segmentation_tpu.data.loader import RANDOM, SEQUENTIAL, Loader
+from medical_image_segmentation_tpu.data.decathlon import DecathlonDataset, DecathlonLoader
+from medical_image_segmentation_tpu.data.loader import RANDOM, SEQUENTIAL, Loader, PairedLoader
 from medical_image_segmentation_tpu_torch.ops.augment import (
     BYOL_TV_VIEW1, BYOL_TV_VIEW2, BYOL_VIEW1, BYOL_VIEW2, ViewConfig,
 )
@@ -160,3 +163,53 @@ class ImagenetDataModule(SSLDataModule):
         kw.setdefault("train_store", os.environ.get("IMAGENET_TRAIN_STORE", "data/stores/imagenet_train.mis"))
         kw.setdefault("val_store", os.environ.get("IMAGENET_VAL_STORE", "data/stores/imagenet_val.mis"))
         super().__init__(**kw)
+
+
+@dataclasses.dataclass
+class DecathlonDataModule:
+    """Paired image/mask datamodule: resize 224², stats on the 0-1 scale
+    (``data/datamodules.py:216-257``). ``store_prefix`` selects the paired
+    stores ``<prefix>_<split>_{images,masks}.mis`` where both exist."""
+
+    images_dir: str = ""
+    masks_dir: str = ""
+    split_file: str = ""
+    image_size: int = 224
+    mean: Tuple[float, ...] = (0.5,)
+    std: Tuple[float, ...] = (0.5,)
+    store_prefix: str = ""
+
+    def dataset(self, split: str) -> DecathlonDataset:
+        return DecathlonDataset(self.images_dir, self.masks_dir, self.split_file, split)
+
+    def loader(self, split: str, batch_size: int, seed: int = 0,
+               shard: Tuple[int, int] = (0, 1), num_threads: int = 4):
+        if self.store_prefix:
+            img_store = f"{self.store_prefix}_{split}_images.mis"
+            msk_store = f"{self.store_prefix}_{split}_masks.mis"
+            if os.path.exists(img_store) and os.path.exists(msk_store):
+                return PairedLoader(img_store, msk_store, batch_size,
+                                    order=RANDOM if split == "train" else SEQUENTIAL,
+                                    num_threads=num_threads, seed=seed,
+                                    drop_last=(split == "train"), shard=shard)
+        return DecathlonLoader(self.dataset(split), batch_size, image_size=self.image_size,
+                               shuffle=(split == "train"), seed=seed, shard=shard, num_threads=num_threads)
+
+
+def _decathlon(name: str, mean: Tuple[float, ...], std: Tuple[float, ...]):
+    @DATAMODULES.register(name)
+    class _M(DecathlonDataModule):
+        def __init__(self, **kw):
+            kw.setdefault("mean", mean)
+            kw.setdefault("std", std)
+            super().__init__(**kw)
+
+    _M.__name__ = _M.__qualname__ = name
+    return _M
+
+
+# stats of the reference's lightning_module.py:727-728,749-750,771-772,793-794
+DecathlonHeartDataModule = _decathlon("DECATHLON_HEART", (0.1181,), (0.1720,))
+DecathlonLiverDataModule = _decathlon("DECATHLON_LIVER", (0.2089,), (0.2109,))
+DecathlonHippocampusDataModule = _decathlon("DECATHLON_HIPPOCAMPUS", (0.4982,), (0.2373,))
+DecathlonLungDataModule = _decathlon("DECATHLON_LUNG", (0.1475,), (0.1685,))

@@ -19,19 +19,23 @@ import torch
 def device_batches(loader: Iterable, device) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Iterate ``(images, labels)`` of ``loader`` (numpy, labels int32) as
     tensors on ``device``: images in the store's dtype, labels int64."""
+    return device_arrays(((imgs, labels.astype(np.int64)) for imgs, labels in loader), device)
+
+
+def device_arrays(batches: Iterable, device) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """Iterate tuples of numpy arrays (e.g. the ``(images, masks)`` of a
+    paired loader) as tuples of tensors on ``device``, dtypes kept."""
     device = torch.device(device)
     if device.type != "cuda":
-        for imgs, labels in loader:
-            yield torch.from_numpy(imgs).to(device), torch.from_numpy(labels.astype(np.int64)).to(device)
+        for arrays in batches:
+            yield tuple(torch.from_numpy(a).to(device) for a in arrays)
         return
 
     copy_stream = torch.cuda.Stream(device)
 
-    def put(batch):
-        imgs, labels = batch
+    def put(arrays):
         with torch.cuda.stream(copy_stream):
-            out = tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
-                        for a in (imgs, labels.astype(np.int64)))
+            out = tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True) for a in arrays)
             done = torch.cuda.Event()
             done.record(copy_stream)
         return out, done
@@ -45,13 +49,13 @@ def device_batches(loader: Iterable, device) -> Iterator[Tuple[torch.Tensor, tor
             t.record_stream(compute)
         return tensors
 
-    it = iter(loader)
+    it = iter(batches)
     try:
         pending = put(next(it))
     except StopIteration:
         return
-    for batch in it:
-        nxt = put(batch)
+    for arrays in it:
+        nxt = put(arrays)
         yield ready(pending)
         pending = nxt
     yield ready(pending)

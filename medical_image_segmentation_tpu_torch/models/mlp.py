@@ -11,10 +11,10 @@ from torch import nn
 from medical_image_segmentation_tpu_torch.models.batchnorm import BatchNorm
 
 
-def reset_linear(linear: nn.Linear, generator: Optional[torch.Generator] = None) -> None:
-    """flax ``Dense`` init: LeCun truncated normal kernel (std 1/√fan_in
-    after the ±2σ truncation), zero bias."""
-    std = (1.0 / linear.in_features) ** 0.5 / 0.87962566103423978
+def reset_linear(linear: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """flax's default ``Dense`` (or biased ``Conv``) init: LeCun truncated
+    normal kernel (std 1/√fan_in after the ±2σ truncation), zero bias."""
+    std = (1.0 / linear.weight[0].numel()) ** 0.5 / 0.87962566103423978
     nn.init.trunc_normal_(linear.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
     nn.init.zeros_(linear.bias)
 

@@ -13,13 +13,17 @@
   call. BatchNorm has flax semantics (``models/batchnorm.py``).
 - Init: Kaiming normal (fan_out, ReLU gain) for every conv, as flax's
   ``variance_scaling(2.0, "fan_out", "normal")``.
+- ``return_pyramid``: the stem output after its ReLU (before the max-pool),
+  then each stage's output — strides 2/4/8/16/32, or 1/2/4/8 for
+  ``low_res`` — as NHWC views of the channels_last activations, for the
+  U-Net decoder (``models/unet.py``).
 
-``remat`` and ``return_pyramid`` are not ported yet.
+``remat`` is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
@@ -126,10 +130,15 @@ class ResNet(nn.Module):
             if isinstance(m, nn.Conv2d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_pyramid: bool = False) -> Union[torch.Tensor, List[torch.Tensor]]:
         x = x.permute(0, 3, 1, 2)
         x = torch.relu(self.bn1(self.conv1(x)))
+        pyramid = [x]
         if not self.low_res:
             x = self.maxpool(x)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = stage(x)
+            pyramid.append(x)
+        if return_pyramid:
+            return [t.permute(0, 2, 3, 1) for t in pyramid]
         return x.mean(dim=(2, 3)).float()

@@ -1,10 +1,13 @@
-"""Two-view SSL augmentation in plain PyTorch.
+"""Two-view SSL augmentation and the paired segmentation pipeline, in plain
+PyTorch.
 
-Port of ``medical_image_segmentation_tpu/ops/augment.py`` (the BYOL half:
-``ViewConfig``, the canonical view configs, RandomResizedCrop sampling, the
+Port of ``medical_image_segmentation_tpu/ops/augment.py``: the BYOL half
+(``ViewConfig``, the canonical view configs, RandomResizedCrop sampling, the
 separable resample matrices, Gaussian blur, the elementwise tail and
-``two_view_augment``). Same math, same NHWC tensors at the public
-functions; ``jax.random`` keys become one explicit ``torch.Generator``.
+``two_view_augment``) and the segmentation half (``_nearest_matrix``,
+``segmentation_augment``, ``parse_hu_windows``, ``apply_hu_windows``). Same
+math, same NHWC tensors at the public functions; ``jax.random`` keys become
+one explicit ``torch.Generator``.
 
 This is the path for configs the fused kernel refuses (the torchvision
 recipe with blur and ColorJitter, see ``ops/fused_augment.py::fused_supported``)
@@ -12,16 +15,18 @@ and, for now, for uint16 stores in the trainer. It is not a fallback: the
 routing is the JAX trainer's own (``train/train_ssl.py:263-294``).
 
 Random draws are separated from the math: ``sample_view_draws`` makes every
-random number one view needs, ``apply_view`` is deterministic given them.
-The tests feed ``apply_view`` the draws that the JAX code makes from its
-keys, so the two packages are compared on identical randomness.
+random number one view needs, ``apply_view`` is deterministic given them;
+``sample_segmentation_draws`` and ``apply_segmentation`` split the paired
+pipeline the same way. The tests feed the ``apply_*`` functions the draws
+that the JAX code makes from its keys, so the two packages are compared on
+identical randomness.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -98,6 +103,19 @@ def _resize_matrix(start: torch.Tensor, size: torch.Tensor, in_dim: int, out_dim
     k = torch.arange(in_dim, device=start.device, dtype=torch.float32).view(1, 1, -1)
     w = (k == lo) * (1.0 - frac) + (k == lo + 1.0) * frac
     return w.to(dtype)
+
+
+def _nearest_matrix(start: torch.Tensor, size: torch.Tensor, in_dim: int, out_dim: int,
+                    dtype=torch.float32) -> torch.Tensor:
+    """(B, out_dim, in_dim) one-hot nearest-neighbour rows, for masks: the
+    source of output i is ``round((i+0.5)·scale − 0.5)``, half to even,
+    clamped to the image (``ops/augment.py:74-82``). ``F.interpolate``'s
+    ``nearest`` takes ``floor(i·scale)`` and would move masks by a pixel."""
+    scale = size / out_dim
+    i = torch.arange(out_dim, device=start.device, dtype=torch.float32).view(1, -1, 1)
+    src = torch.round(start.view(-1, 1, 1) + (i + 0.5) * scale.view(-1, 1, 1) - 0.5).clamp(0.0, in_dim - 1)
+    k = torch.arange(in_dim, device=start.device, dtype=torch.float32).view(1, 1, -1)
+    return (k == src).to(dtype)
 
 
 def _flip_cols(r_x: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
@@ -236,3 +254,104 @@ def two_view_augment(
     v1 = augment_view(generator, images, cfg1, mean, std, dtype)
     v2 = augment_view(generator, images, cfg2, mean, std, dtype)
     return v1, v2
+
+
+def sample_segmentation_draws(generator: torch.Generator, batch: int) -> Dict[str, torch.Tensor]:
+    """The train-time draws of ``segmentation_augment``, each (B,), in the
+    JAX key order ``kh, kv, kb, kc`` (``ops/augment.py:393``): horizontal
+    and vertical flips at 0.5, brightness and contrast factors in [0.8, 1.2)."""
+    return {
+        "hflip": _uniform(generator, batch) < 0.5,
+        "vflip": _uniform(generator, batch) < 0.5,
+        "brightness": _uniform(generator, batch, 0.8, 1.2),
+        "contrast": _uniform(generator, batch, 0.8, 1.2),
+    }
+
+
+def apply_segmentation(
+    draws: Optional[Dict[str, torch.Tensor]],
+    images: torch.Tensor,                    # (B, H, W, 1) uint8 0..255 or float
+    masks: torch.Tensor,                     # (B, H, W, 1) binary
+    out_size: Tuple[int, int] = (224, 224),
+    mean: Sequence[float] = (0.2089,),       # Decathlon liver stats, 0-1 scale
+    std: Sequence[float] = (0.2109,),
+    value_scale: float = 1.0 / 255.0,
+    dtype=torch.bfloat16,
+    hu_windows: Sequence[Tuple[float, float]] = (),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paired image/mask pipeline (``ops/augment.py:353-416``) from the
+    given draws; ``draws=None`` is the eval pipeline (no flips, no jitter).
+
+    Resize to ``out_size`` (bilinear for the image, nearest for the mask,
+    both as matrices in ``dtype``) with the flips folded into the matrices
+    (the vertical one reverses the rows of ``r_y``/``n_y``) → scale to 0..1
+    → brightness, clip, contrast around each sample's mean of the clipped
+    image, clip → ``apply_hu_windows`` → normalize. Returns the image in
+    ``dtype`` and the f32 0/1 mask."""
+    b, in_h, in_w, _ = images.shape
+    out_h, out_w = out_size
+    zeros = torch.zeros(b, device=images.device)
+    full_h = torch.full((b,), float(in_h), device=images.device)
+    full_w = torch.full((b,), float(in_w), device=images.device)
+    r_y = _resize_matrix(zeros, full_h, in_h, out_h, dtype)
+    r_x = _resize_matrix(zeros, full_w, in_w, out_w, dtype)
+    n_y = _nearest_matrix(zeros, full_h, in_h, out_h, dtype)
+    n_x = _nearest_matrix(zeros, full_w, in_w, out_w, dtype)
+    if draws is not None:
+        r_x, n_x = _flip_cols(r_x, draws["hflip"]), _flip_cols(n_x, draws["hflip"])
+        r_y, n_y = _flip_cols(r_y, draws["vflip"]), _flip_cols(n_y, draws["vflip"])
+
+    img = apply_resample(images, r_y, r_x).float() * value_scale
+    msk = (apply_resample(masks, n_y, n_x).float() > 0.5).float()
+    if draws is not None:
+        img = (img * draws["brightness"].view(-1, 1, 1, 1)).clamp(0.0, 1.0)
+        m = img.mean(dim=(1, 2, 3), keepdim=True)
+        img = (m + draws["contrast"].view(-1, 1, 1, 1) * (img - m)).clamp(0.0, 1.0)
+
+    img = apply_hu_windows(img, hu_windows)
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=img.device).view(1, 1, 1, -1)
+    std_t = torch.tensor(std, dtype=torch.float32, device=img.device).view(1, 1, 1, -1)
+    return ((img - mean_t) / std_t).to(dtype), msk
+
+
+def segmentation_augment(generator: Optional[torch.Generator], images: torch.Tensor, masks: torch.Tensor,
+                         out_size: Tuple[int, int] = (224, 224), mean: Sequence[float] = (0.2089,),
+                         std: Sequence[float] = (0.2109,), train: bool = True,
+                         value_scale: float = 1.0 / 255.0, dtype=torch.bfloat16,
+                         hu_windows: Sequence[Tuple[float, float]] = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample the draws from ``generator`` when ``train`` (eval needs no
+    generator) and apply them: the JAX ``segmentation_augment``."""
+    draws = sample_segmentation_draws(generator, images.shape[0]) if train else None
+    return apply_segmentation(draws, images, masks, out_size, mean, std, value_scale, dtype, hu_windows)
+
+
+def parse_hu_windows(spec: str, value_max: float = 255.0) -> Tuple[Tuple[float, float], ...]:
+    """A CLI windows spec ``"L:W,L:W,…"`` (level:width in stored value
+    units) → (level, width) pairs on the 0..1 scale (``ops/augment.py:419-437``)."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            lv, wd = (float(t) for t in part.split(":"))
+        except ValueError:
+            raise ValueError(f"bad window {part!r}: expected LEVEL:WIDTH") from None
+        if wd <= 0:
+            raise ValueError(f"bad window {part!r}: width must be > 0")
+        out.append((lv / value_max, wd / value_max))
+    if not out:
+        raise ValueError(f"no windows in spec {spec!r}")
+    return tuple(out)
+
+
+def apply_hu_windows(img: torch.Tensor, hu_windows: Sequence[Tuple[float, float]]) -> torch.Tensor:
+    """Fixed (level, width) display windows of a (..., 1) 0..1 image as
+    channels: channel c is ``clip((x − (level_c − width_c/2)) / width_c, 0, 1)``
+    (``ops/augment.py:440-456``). The image itself when ``hu_windows`` is
+    empty."""
+    if not hu_windows:
+        return img
+    lo = torch.tensor([float(lv) - float(wd) / 2.0 for lv, wd in hu_windows], device=img.device)
+    width = torch.tensor([float(wd) for _, wd in hu_windows], device=img.device)
+    return ((img - lo) / width).clamp(0.0, 1.0)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from medical_image_segmentation_tpu.core.metrics_logger import CSVMetricsLogger
+from medical_image_segmentation_tpu_torch.core.checkpoint import save_checkpoint
 from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
 from medical_image_segmentation_tpu_torch.data.device_feed import device_batches
 from medical_image_segmentation_tpu_torch.ops.augment import two_view_augment
@@ -96,8 +97,9 @@ _UNPORTED = (
 )
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    for flag, is_set, what in _UNPORTED:
+def refuse_unported(args: argparse.Namespace, unported=_UNPORTED) -> None:
+    """SystemExit on the first flag of ``unported`` that ``args`` sets."""
+    for flag, is_set, what in unported:
         if is_set(args):
             raise SystemExit(f"--{flag}: {what} is not ported to the PyTorch package yet "
                              "(see ROADMAP.md); run medical_image_segmentation_tpu for it")
@@ -137,7 +139,7 @@ class TrainRun:
 
 def run(argv: Optional[Sequence[str]] = None) -> TrainRun:
     args = parse_args(argv)
-    _refuse_unported(args)
+    refuse_unported(args)
     device = resolve_device(args.device)
 
     if device.type == "cuda":
@@ -189,9 +191,7 @@ def run(argv: Optional[Sequence[str]] = None) -> TrainRun:
             if args.val_every_epochs and (epoch + 1) % args.val_every_epochs == 0:
                 _validate(task, dm, args, device, logger, epoch)
             if args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0:
-                os.makedirs(args.checkpoint_dir, exist_ok=True)
-                path = os.path.join(args.checkpoint_dir, f"{task.step}.pt")
-                torch.save(task.state_dict(), path)
+                path = save_checkpoint(args.checkpoint_dir, task.state_dict(), task.step)
                 print(f"checkpoint → {path}", file=sys.stderr)
     return TrainRun(task=task, epochs=epochs, used_kernel=use_kernel)
 
