@@ -49,6 +49,31 @@ exits non-zero and prints no result:
 10. seg_step: steady-state segmentation ms/step on a device-resident batch
    (batch 64, 224², bf16), FLOPs per step and the peak device memory.
 
+The SSL path's phases, each at the BYOL width of phase 6:
+
+11. precrop: ``--host_precrop`` on phase 6's store for 8 steps. The
+   elementwise tail on the card against the CPU on the same draws (1 bf16
+   ulp), no kernel launch, the H2D bytes a batch of both routes and the
+   host reader that served.
+12. resume: the BYOL trainer (2 epochs × 8 steps) stopped by SIGTERM after
+   step 11, then run with ``--resume``: it ends at step 16 having skipped
+   the 3 trained batches, every step ran at the uninterrupted run's LR and
+   τ, and the checkpoint restores bit for bit. The same for the
+   segmentation trainer.
+13. ssl_eval: CIFAR10 (32² RGB, low-res stem, train labels) on a synthetic
+   labelled store, one epoch with validation and the KNN probe over a bank
+   larger than its chunk, then ``mis-linear-probe-torch`` on its
+   checkpoint for 2 epochs; then the chunked KNN against the unchunked one
+   at the trainer's default bank cap (262,144 × 512 f32, 256 queries,
+   chunks of 65,536): equal argmax, scores within 1e-4, and both timed.
+14. profile: ``--profile 4``; the trace names the kernel and the loader's
+   stage report is printed.
+15. remat: one BYOL step (batch 256) and one U-Net step (batch 64, 224²)
+   with and without ``remat`` from the same weights and batch: loss and
+   BatchNorm statistics within 1e-6 and a lower peak with remat.
+16. hbm: the memory guard's report on both configurations, and the task
+   and generator bit-equal across its probe step.
+
 TF32 is off for both cuDNN and cuBLAS, so every f32 op here is full f32;
 the training steps run in bf16 under autocast, which TF32 does not touch.
 The last two lines are the kernels' JSON record and
@@ -697,6 +722,422 @@ def run_seg_step(torch, card: str) -> None:
           card=repr(card))
 
 
+# The SSL phases run the BYOL trainer at full width (ResNet-18, hidden
+# 4096, projection 256, batch 256) on the RADIOLOGY_1M store of phase 6,
+# and on a synthetic labelled CIFAR10 store (32² RGB, 10 classes): the
+# reference's default configuration.
+SSL_DEVICE = "cuda"
+SSL_WIDTH = ["--arch", "resnet18", "--hidden_dim", "4096", "--projection_dim", "256"]
+SSL_BATCH = 256
+SSL_STEPS = 8                      # steps an epoch in the precrop, resume and profile phases
+RESUME_STOP = 11                   # SIGTERM after this step of 2 × SSL_STEPS
+CIFAR_SPLITS = {"train": 4096, "val": 1024}
+KNN_BANK, KNN_DIM, KNN_QUERIES, KNN_CHUNK = 262144, 512, 256, 65536  # the trainer's default cap and chunk
+
+
+def ssl_argv(workdir: str, name: str, dataset: str, *extra) -> list:
+    """The BYOL trainer's argv at full width, logs and checkpoints under
+    ``<workdir>/<name>``; no validation unless ``extra`` asks for it."""
+    return ["--device", SSL_DEVICE, "--dataset", dataset, *SSL_WIDTH, "--batch_size", str(SSL_BATCH),
+            "--warmup_epochs", "0", "--num_workers", "8", "--seed", "0", "--val_every_epochs", "0",
+            "--log_dir", os.path.join(workdir, name, "logs"), "--checkpoint_dir", os.path.join(workdir, name, "ckpt"),
+            *extra]
+
+
+def stopped_run(task_cls, step: int, run, argv):
+    """``run(argv)`` with SIGTERM sent to this process right after the task
+    takes its ``step``-th step: the trainer checkpoints and returns."""
+    import signal
+
+    original = task_cls.train_step
+
+    def step_then_signal(self, *a, **kw):
+        out = original(self, *a, **kw)
+        if self.step == step:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    task_cls.train_step = step_then_signal
+    try:
+        return run(argv)
+    finally:
+        task_cls.train_step = original
+
+
+def cpu_tree(obj):
+    """A nested state dict with every tensor copied to the host."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: cpu_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(cpu_tree(v) for v in obj)
+    return obj
+
+
+def trees_equal(a, b) -> bool:
+    """Bit-equal nested state dicts."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    return a == b
+
+
+def epoch_ms(result) -> float:
+    """Trainer ms per step over the run's epochs, the first (cuDNN
+    autotuning, loader start) included."""
+    return 1000.0 * sum(e["seconds"] for e in result.epochs) / sum(e["steps"] for e in result.epochs)
+
+
+def run_precrop(torch, fa, workdir: str, card: str) -> None:
+    """``--host_precrop`` on the RADIOLOGY_1M 256² store: the tail on the
+    card against the CPU on the same draws, the bytes each route ships per
+    batch, and the trainer for ``SSL_STEPS`` steps without a kernel launch."""
+    import contextlib
+
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
+    from medical_image_segmentation_tpu_torch.ops.augment import apply_view_tail, sample_tail_draws
+    from medical_image_segmentation_tpu_torch.train import train_ssl
+
+    dm = get_datamodule("RADIOLOGY_1M")()
+    cfg1, cfg2 = dm.view_configs()
+    full = dm.train_loader(SSL_BATCH, num_threads=8, seed=0)
+    pre = dm.train_loader(SSL_BATCH, num_threads=8, seed=0, precrop=train_ssl.precrop_spec(dm, cfg1, cfg2))
+    with contextlib.closing(full), contextlib.closing(pre):
+        imgs, _ = next(iter(full))
+        t0 = time.time()
+        views, _ = next(iter(pre))
+        fetch_s = time.time() - t0
+    check(views.shape == (2 * SSL_BATCH, dm.crop_size, dm.crop_size, 1) and views.dtype == np.uint8,
+          f"pre-cropped batch {views.shape} {views.dtype}")
+    gen = torch.Generator(device=SSL_DEVICE).manual_seed(5)
+    on_card = torch.from_numpy(views).to(SSL_DEVICE)
+    worst = 0
+    for v, cfg in enumerate((cfg1, cfg2)):
+        draws = sample_tail_draws(gen, SSL_BATCH, 1, cfg)
+        got = apply_view_tail(draws, on_card[v::2], cfg, dm.train_mean, dm.train_std, torch.bfloat16)
+        want = apply_view_tail({k: d.cpu() for k, d in draws.items()}, on_card[v::2].cpu(), cfg,
+                               dm.train_mean, dm.train_std, torch.bfloat16)
+        worst = max(worst, bf16_ulps(got.cpu(), want))
+    check(worst <= 1, f"precrop tail: card and CPU differ by {worst} bf16 ulp")
+
+    fa.fused_two_view_augment.launches = 0
+    t0 = time.time()
+    result = train_ssl.run(ssl_argv(workdir, "precrop", "RADIOLOGY_1M", "--host_precrop", "--max_epochs", "1",
+                                    "--limit_steps_per_epoch", str(SSL_STEPS), "--checkpoint_every_epochs", "0"))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fa.fused_two_view_augment.launches
+    check(launches == 0 and not result.used_kernel, f"the precrop route launched the kernel {launches} times")
+    check(result.task.step == SSL_STEPS and all(math.isfinite(e["loss"]) for e in result.epochs),
+          f"precrop run: {result.task.step} steps, epochs {result.epochs}")
+    phase("precrop", steps=result.task.step, kernel_launches=launches, tail_max_bf16_ulp=worst,
+          h2d_bytes_per_batch_precrop=views.nbytes, h2d_bytes_per_batch_full=imgs.nbytes,
+          h2d_ratio=imgs.nbytes / views.nbytes, reader=result.reader, host_fetch_s_per_batch=round(fetch_s, 3),
+          ms_per_step=epoch_ms(result), wall_s=round(wall, 2), card=repr(card))
+
+
+def run_resume(torch, fa, workdir: str, card: str) -> None:
+    """Both trainers stopped by SIGTERM mid-epoch and resumed: they end at
+    the last step having skipped exactly the trained batches, every step
+    ran at the schedule's LR (and τ) once, and a checkpoint restores bit
+    for bit."""
+    from medical_image_segmentation_tpu_torch.core.checkpoint import load_checkpoint
+    from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
+    from medical_image_segmentation_tpu_torch.train import train_segmentation, train_ssl
+    from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
+    from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
+
+    total, skip = 2 * SSL_STEPS, RESUME_STOP % SSL_STEPS
+    argv = ssl_argv(workdir, "resume", "RADIOLOGY_1M", "--max_epochs", "2", "--limit_steps_per_epoch", str(SSL_STEPS))
+    fa.fused_two_view_augment.launches = 0
+    t0 = time.time()
+    first = stopped_run(BYOLTask, RESUME_STOP, train_ssl.run, argv)
+    second = train_ssl.run(argv + ["--resume"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fa.fused_two_view_augment.launches
+    task = second.task
+    check(first.stopped and first.task.step == RESUME_STOP, f"BYOL stopped at {first.task.step}")
+    check(second.resumed_from == RESUME_STOP and second.skipped == skip and task.step == total,
+          f"BYOL resumed from {second.resumed_from}, skipped {second.skipped}, ended at {task.step}")
+    want = [(s, task.schedule(s), task.ema_schedule(s, task.total_steps)) for s in range(total)]
+    check(first.schedule + second.schedule == want, "BYOL: the steps' lr/tau differ from an uninterrupted run's")
+    check(launches >= total, f"kernel launched {launches} times for {total} steps")
+    saved = load_checkpoint(os.path.join(workdir, "resume", "ckpt", f"{RESUME_STOP}.pt"))
+    fresh = train_ssl._make_task(train_ssl.parse_args(argv), get_datamodule("RADIOLOGY_1M")(), torch.bfloat16,
+                                 torch.device(SSL_DEVICE), SSL_STEPS)
+    fresh.load_state_dict(saved)
+    gen = torch.Generator(device=SSL_DEVICE)
+    gen.set_state(saved["aug_generator"])
+    restored = {**cpu_tree(fresh.state_dict()), "epoch": saved["epoch"], "aug_generator": gen.get_state()}
+    check(trees_equal(restored, saved), "BYOL: the restored state differs from the saved one")
+    del fresh, first, second, task
+
+    seg_argv = ["--device", SEG_DEVICE, "--dataset", SEG_DATASET, "--images_dir", workdir, "--masks_dir", workdir,
+                "--seg_store_prefix", os.path.join(workdir, "seg"), "--arch", "resnet18", "--batch_size",
+                str(SEG_BATCH), "--image_size", str(SEG_SIZE), "--max_epochs", "2", "--limit_steps_per_epoch",
+                str(SEG_STEPS), "--warmup_epochs", "0", "--num_workers", "8", "--seed", "0",
+                "--checkpoint_every_epochs", "0", "--checkpoint_dir", os.path.join(workdir, "seg_resume"),
+                "--log_dir", os.path.join(workdir, "seg_resume_logs")]
+    seg_total, seg_skip = 2 * SEG_STEPS, RESUME_STOP % SEG_STEPS
+    t0 = time.time()
+    seg_first = stopped_run(SegmentationTask, RESUME_STOP, train_segmentation.run, seg_argv)
+    seg_second = train_segmentation.run(seg_argv + ["--resume"])
+    torch.cuda.synchronize()
+    seg_wall = time.time() - t0
+    stask = seg_second.task
+    check(seg_first.stopped and seg_first.task.step == RESUME_STOP, f"seg stopped at {seg_first.task.step}")
+    check(seg_second.resumed_from == RESUME_STOP and seg_second.skipped == seg_skip and stask.step == seg_total,
+          f"seg resumed from {seg_second.resumed_from}, skipped {seg_second.skipped}, ended at {stask.step}")
+    check(seg_first.schedule + seg_second.schedule == [(s, stask.schedule(s)) for s in range(seg_total)],
+          "seg: the steps' lr differ from an uninterrupted run's")
+    seg_saved = load_checkpoint(seg_first.checkpoint)
+    fresh = SegmentationTask(device=SEG_DEVICE)
+    fresh.load_state_dict(seg_saved)
+    gen = torch.Generator(device=SEG_DEVICE)
+    gen.set_state(seg_saved["aug_generator"])
+    restored = {**cpu_tree(fresh.state_dict()), "epoch": seg_saved["epoch"], "aug_generator": gen.get_state()}
+    check(trees_equal(restored, seg_saved), "seg: the restored state differs from the saved one")
+    phase("resume", byol_steps=f"{RESUME_STOP}+{total - RESUME_STOP}", byol_skipped=skip,
+          byol_launches=launches, seg_steps=f"{RESUME_STOP}+{seg_total - RESUME_STOP}", seg_skipped=seg_skip,
+          restored_bit_equal=True, byol_wall_s=round(wall, 2), seg_wall_s=round(seg_wall, 2), card=repr(card))
+
+
+def write_labelled_store(path: str, n: int, size: int, channels: int, classes: int, seed: int) -> None:
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.store import CODEC_RAW, StoreWriter
+
+    rng = np.random.default_rng(seed)
+    with StoreWriter(path, channels=channels, with_labels=True) as w:
+        for i in range(n):
+            w.add(rng.integers(0, 256, size=(size, size, channels), dtype=np.uint8), label=i % classes,
+                  codec=CODEC_RAW)
+
+
+def event_ms(torch, fn, n: int = 10) -> float:
+    """Mean device time of ``fn`` over ``n`` back-to-back runs after
+    three warm-up runs, from CUDA events."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def run_ssl_eval(torch, fa, workdir: str, card: str) -> None:
+    """The reference's default configuration (CIFAR10: 32² RGB, low-res
+    stem, 10 classes, train labels) through the trainer with the KNN probe
+    each epoch on a bank larger than its chunk, then the linear probe CLI
+    on its checkpoint; then the chunked KNN against the unchunked one at
+    the trainer's default bank cap."""
+    import torch.nn.functional as F
+
+    from medical_image_segmentation_tpu_torch.eval import run_linear_probe
+    from medical_image_segmentation_tpu_torch.eval.knn import knn_predict, knn_predict_chunked
+    from medical_image_segmentation_tpu_torch.train import train_ssl
+
+    t0 = time.time()
+    for split, n in CIFAR_SPLITS.items():
+        path = os.path.join(workdir, f"cifar10_{split}.mis")
+        write_labelled_store(path, n, 32, 3, 10, seed=len(split))
+        os.environ[f"CIFAR10_{split.upper()}_STORE"] = path
+    setup_s = time.time() - t0
+    steps = CIFAR_SPLITS["train"] // SSL_BATCH
+    fa.fused_two_view_augment.launches = 0
+    t0 = time.time()
+    result = train_ssl.run(ssl_argv(workdir, "cifar", "CIFAR10", "--max_epochs", "1", "--val_every_epochs", "1",
+                                    "--knn_every_epochs", "1", "--knn_bank_chunk", str(CIFAR_SPLITS["train"] // 4)))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fa.fused_two_view_augment.launches
+    check(result.used_kernel and launches >= steps, f"CIFAR10: {launches} kernel launches for {steps} steps")
+    check(result.task.step == steps and result.knn_acc is not None and 0.0 <= result.knn_acc <= 1.0,
+          f"CIFAR10: {result.task.step} steps, KNN accuracy {result.knn_acc}")
+    check(result.val is not None and all(math.isfinite(v) for v in result.val.values()), f"val {result.val}")
+    t0 = time.time()
+    probe = run_linear_probe.run(["--checkpoint", os.path.join(workdir, "cifar", "ckpt"), "--dataset", "CIFAR10",
+                                  *SSL_WIDTH, "--batch_size", str(SSL_BATCH), "--epochs", "2",
+                                  "--device", SSL_DEVICE])
+    probe_s = time.time() - t0
+    check(0.0 <= probe.get("online_val_acc", -1.0) <= 1.0, f"linear probe {probe}")
+
+    g = torch.Generator(device=SSL_DEVICE).manual_seed(7)
+    bank = F.normalize(torch.randn(KNN_BANK, KNN_DIM, generator=g, device=SSL_DEVICE), dim=1)
+    labels = torch.randint(0, 10, (KNN_BANK,), generator=g, device=SSL_DEVICE)
+    queries = torch.randn(KNN_QUERIES, KNN_DIM, generator=g, device=SSL_DEVICE)
+    full = knn_predict(queries, bank, labels, 10)
+    chunked = knn_predict_chunked(queries, bank, labels, 10, chunk_size=KNN_CHUNK)
+    argmax_equal = int((full.argmax(1) == chunked.argmax(1)).sum())
+    rel = float(((full - chunked).abs() / full.abs().clamp_min(1e-30)).max())
+    check(argmax_equal == KNN_QUERIES and rel <= 1e-4, f"chunked KNN: {argmax_equal}/{KNN_QUERIES} argmax, rel {rel}")
+    ms = {"unchunked": event_ms(torch, lambda: knn_predict(queries, bank, labels, 10)),
+          "chunked": event_ms(torch, lambda: knn_predict_chunked(queries, bank, labels, 10, chunk_size=KNN_CHUNK))}
+    phase("ssl_eval", dataset="CIFAR10", steps=result.task.step, kernel_launches=launches,
+          online_knn_val_acc=result.knn_acc, val_acc1=result.val["val/acc@1"],
+          linear_probe_val_acc=probe["online_val_acc"], store_setup_s=round(setup_s, 2), train_wall_s=round(wall, 2),
+          probe_wall_s=round(probe_s, 2), knn_bank=f"{KNN_BANK}x{KNN_DIM}", knn_queries=KNN_QUERIES,
+          knn_chunk=KNN_CHUNK, knn_argmax_equal=f"{argmax_equal}/{KNN_QUERIES}", knn_scores_max_rel=rel,
+          knn_ms_per_query_batch_unchunked=ms["unchunked"], knn_ms_per_query_batch_chunked=ms["chunked"],
+          card=repr(card))
+
+
+def run_profile(torch, fa, workdir: str, card: str) -> None:
+    """``--profile 4``: the trace file names the augmentation kernel, and
+    the loader's stage report is printed."""
+    import contextlib
+    import io
+
+    from medical_image_segmentation_tpu_torch.train import train_ssl
+
+    err = io.StringIO()
+    fa.fused_two_view_augment.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        result = train_ssl.run(ssl_argv(workdir, "profile", "RADIOLOGY_1M", "--profile", "4", "--max_epochs", "1",
+                                        "--limit_steps_per_epoch", "6", "--checkpoint_every_epochs", "0"))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    sys.stderr.write(err.getvalue())
+    launches = fa.fused_two_view_augment.launches
+    check(result.trace and os.path.exists(result.trace), f"no trace file ({result.trace})")
+    with open(result.trace) as f:
+        trace = f.read()
+    hits = trace.count("two_view_augment_kernel")
+    check(hits > 0, "the trace does not name the two_view_augment kernel")
+    check("loader stages (epoch 0):\ndecode:" in err.getvalue(), "no loader stage report")
+    check(launches >= 6, f"kernel launched {launches} times for 6 steps")
+    phase("profile", traced_steps=4, kernel_launches=launches, trace_bytes=len(trace), kernel_events=hits,
+          loader_report=True, wall_s=round(wall, 2), card=repr(card))
+
+
+def _peak_step(torch, make_task, batch):
+    """Loss, BatchNorm running statistics and peak device memory of a fresh
+    task's first step."""
+    task = make_task()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = task.train_step(*batch)
+    loss = float(m["loss"] if "loss" in m else m["train/loss"])
+    peak = torch.cuda.max_memory_allocated()
+    model = getattr(task, "online", None) or task.model
+    stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items() if "running" in k}
+    del task, m
+    torch.cuda.empty_cache()
+    return loss, stats, peak
+
+
+def run_remat(torch, fa, card: str) -> None:
+    """One BYOL step (batch 256) and one U-Net step (batch 64, 224²), each
+    with and without remat from the same weights and batch: the same
+    forward (loss and BatchNorm statistics), a lower peak with remat."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
+    from medical_image_segmentation_tpu_torch.ops.augment import segmentation_augment
+    from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
+    from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
+
+    rad = get_datamodule("RADIOLOGY_1M")()
+    cfg1, cfg2 = rad.view_configs()
+    gen = torch.Generator(device=SSL_DEVICE).manual_seed(11)
+    imgs = torch.randint(0, 256, (SSL_BATCH, 256, 256, 1), generator=gen, device=SSL_DEVICE, dtype=torch.uint8)
+    views = fa.fused_two_view_augment(imgs, cfg1, cfg2, rad.train_mean, rad.train_std, torch.bfloat16, generator=gen)
+    liver = get_datamodule(SEG_DATASET)()
+    x, m = (np.stack(a)[..., None] for a in zip(*disk_slices(np.random.default_rng(6), SEG_BATCH, SEG_SIZE)))
+    seg_batch = segmentation_augment(gen, torch.from_numpy(x).to(SEG_DEVICE),
+                                     torch.from_numpy(m.astype(np.float32)).to(SEG_DEVICE),
+                                     (SEG_SIZE, SEG_SIZE), liver.mean, liver.std, train=True)
+
+    def byol(remat):
+        def make():
+            task = BYOLTask(arch="resnet18", in_channels=1, hidden_dim=4096, proj_dim=256, warmup_epochs=0,
+                            device=SSL_DEVICE, remat=remat)
+            task.init(0)
+            return task
+        return make
+
+    def seg(remat):
+        def make():
+            task = SegmentationTask(device=SEG_DEVICE, warmup_epochs=0, remat=remat)
+            task.init(0)
+            return task
+        return make
+
+    fields = {}
+    for name, make, batch in (("byol", byol, views), ("unet", seg, seg_batch)):
+        plain, remat = _peak_step(torch, make(False), batch), _peak_step(torch, make(True), batch)
+        loss_rel = abs(plain[0] - remat[0]) / abs(plain[0])
+        bn_rel = max(float((remat[1][k] - plain[1][k]).abs().max()) / max(float(plain[1][k].abs().max()), 1e-30)
+                     for k in plain[1])
+        check(loss_rel <= 1e-6 and bn_rel <= 1e-6, f"{name}: remat changed the forward: loss {loss_rel}, BN {bn_rel}")
+        check(remat[2] < plain[2], f"{name}: remat peak {remat[2]} not under the plain peak {plain[2]}")
+        fields.update({f"{name}_loss_rel": loss_rel, f"{name}_bn_rel": bn_rel,
+                       f"{name}_peak_gib_plain": plain[2] / 2**30, f"{name}_peak_gib_remat": remat[2] / 2**30})
+    phase("remat", byol_batch=SSL_BATCH, unet_batch=SEG_BATCH, unet_size=SEG_SIZE, **fields, card=repr(card))
+
+
+def run_hbm(torch, fa, card: str) -> None:
+    """The memory guard on the BYOL and U-Net configurations: its report,
+    and the state bit-equal across its probe step."""
+    from medical_image_segmentation_tpu_torch.core import hbm
+    from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
+    from medical_image_segmentation_tpu_torch.ops.augment import segmentation_augment
+    from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
+    from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
+
+    rad, liver = get_datamodule("RADIOLOGY_1M")(), get_datamodule(SEG_DATASET)()
+    cfg1, cfg2 = rad.view_configs()
+    fields = {}
+    for name in ("byol", "seg"):
+        gen = torch.Generator(device=SSL_DEVICE).manual_seed(13)
+        if name == "byol":
+            task = BYOLTask(arch="resnet18", in_channels=1, hidden_dim=4096, proj_dim=256, device=SSL_DEVICE)
+            imgs = torch.zeros(SSL_BATCH, 256, 256, 1, dtype=torch.uint8, device=SSL_DEVICE)
+
+            def step():
+                task.train_step(*fa.fused_two_view_augment(imgs, cfg1, cfg2, rad.train_mean, rad.train_std,
+                                                           torch.bfloat16, generator=gen))
+        else:
+            task = SegmentationTask(device=SEG_DEVICE)
+            imgs = torch.zeros(SEG_BATCH, SEG_SIZE, SEG_SIZE, 1, dtype=torch.uint8, device=SEG_DEVICE)
+
+            def step():
+                task.train_step(*segmentation_augment(gen, imgs, imgs.float(), (SEG_SIZE, SEG_SIZE), liver.mean,
+                                                      liver.std, train=True))
+        task.init(0)
+        before, gen_before = cpu_tree(task.state_dict()), gen.get_state()
+
+        def probe():
+            with hbm.preserved(task, gen):
+                step()
+
+        mem = hbm.guard_step(probe, label=f"{name} train step", device=SSL_DEVICE)
+        equal = trees_equal(cpu_tree(task.state_dict()), before) and torch.equal(gen.get_state(), gen_before)
+        check(mem is not None and not mem["oversubscribed"], f"{name}: guard report {mem}")
+        check(equal, f"{name}: the probe step changed the task's state")
+        fields.update({f"{name}_peak_gib": mem["projected_peak"] / 2**30, f"{name}_state_bit_equal": equal})
+        capacity = mem["capacity"]
+        del task
+        torch.cuda.empty_cache()
+    phase("hbm", byol_batch=SSL_BATCH, seg_batch=SEG_BATCH, **fields, capacity_gib=capacity / 2**30,
+          card=repr(card))
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -745,7 +1186,13 @@ def main(argv=None) -> int:
             del task
             seg_ckpt = run_seg_train(torch, workdir, ssl_ckpt, card)
             run_predict(torch, workdir, seg_ckpt, card)
-        run_seg_step(torch, card)
+            run_seg_step(torch, card)
+            run_precrop(torch, fa, workdir, card)
+            run_resume(torch, fa, workdir, card)
+            run_ssl_eval(torch, fa, workdir, card)
+            run_profile(torch, fa, workdir, card)
+        run_remat(torch, fa, card)
+        run_hbm(torch, fa, card)
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches, **kernel_record}])
     except SmokeFailure as e:

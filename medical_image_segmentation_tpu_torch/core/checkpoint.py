@@ -3,7 +3,13 @@
 Port of ``core/checkpoint.py:49-98, 139-170``. A checkpoint is one
 ``torch.save`` file ``<dir>/<step>.pt`` (the convention of
 ``train/train_ssl.py``), written to a temporary name and renamed, so a
-run killed mid-save leaves the last complete one.
+run killed mid-save leaves the last complete one. A trainer's checkpoint
+holds its task's ``state_dict`` plus what a resume needs beyond it:
+``epoch``, the epoch of the loader's data order that the next step reads,
+and ``aug_generator``, the state of the augmentation ``torch.Generator``
+(the torch stream cannot be re-derived from the step as JAX's
+``fold_in(key(seed+1), step)`` is). Files written before these keys
+existed still load; the encoder graft reads only ``online``.
 
 ``load_byol_encoder_into_unet`` grafts the ONLINE encoder's backbone of a
 BYOL checkpoint (weights and BatchNorm running statistics; never the
@@ -15,7 +21,8 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Mapping, Optional
+import sys
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -37,6 +44,45 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return None
     steps = [int(m[1]) for m in map(_STEP_FILE.fullmatch, os.listdir(ckpt_dir)) if m]
     return max(steps, default=None)
+
+
+def trainer_state(task, next_epoch: int, generator: torch.Generator) -> Dict[str, object]:
+    """What a trainer saves: ``task.state_dict()`` plus the epoch of the
+    data order that the next step reads and the generator's state."""
+    return {**task.state_dict(), "epoch": next_epoch, "aug_generator": generator.get_state()}
+
+
+def resume_latest(ckpt_dir: str, task, loader, generator: torch.Generator,
+                  steps_per_epoch: int) -> Optional[Tuple[int, int, int]]:
+    """Restore the latest checkpoint of ``ckpt_dir`` into ``task``,
+    ``loader.epoch`` and ``generator`` (``train/train_ssl.py:240-258``).
+    Returns ``(step, epoch, skip)``: the run goes on from ``epoch`` after
+    skipping the ``skip`` batches of it that were already trained; None
+    when there is nothing to resume from. A checkpoint without the resume
+    keys takes its epoch from its step and leaves the generator alone."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return None
+    ckpt = load_checkpoint(os.path.join(ckpt_dir, f"{step}.pt"))
+    task.load_state_dict(ckpt)
+    epoch = int(ckpt.get("epoch", task.step // steps_per_epoch))
+    skip = task.step - epoch * steps_per_epoch
+    if not 0 <= skip < steps_per_epoch:
+        raise SystemExit(f"--resume: checkpoint step {task.step} does not fall in its epoch {epoch} at "
+                         f"{steps_per_epoch} steps per epoch; resume with the batch size and step cap it was "
+                         "trained with")
+    if "aug_generator" in ckpt:
+        generator.set_state(ckpt["aug_generator"])
+    loader.epoch = epoch  # before the first iter(), which takes the counter and advances it
+    print(f"resumed from step {task.step} (epoch {epoch}"
+          + (f", skipping {skip} trained batches" if skip else "") + ")", file=sys.stderr)
+    return task.step, epoch, skip
+
+
+def load_checkpoint(path: str, map_location="cpu") -> Dict[str, object]:
+    """The checkpoint at ``path``: a ``.pt`` file, or a directory whose
+    latest step is read."""
+    return torch.load(resolve_checkpoint_path(path), map_location=map_location, weights_only=True)
 
 
 def resolve_checkpoint_path(path: str) -> str:

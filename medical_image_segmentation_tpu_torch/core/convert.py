@@ -16,7 +16,9 @@ for its ``UNet``:
   → ``fc1/fc2`` and ``bn`` in an MLP;
 - in the U-Net the ResNet sits directly under ``encoder/`` (no
   ``ResNet_0/``), ``DecoderBlock_{k}`` → ``decoder.{k}``, and ``head``
-  keeps its kernel and bias.
+  keeps its kernel and bias;
+- the linear probe's head (``eval/linear_probe.py``): ``Dense_0`` →
+  ``linear``.
 
 A leaf no rule maps raises, so a model change on either side cannot be
 half-converted in silence.
@@ -86,6 +88,12 @@ _UNET_RULES = _compile(_resnet_rules("encoder/", "encoder.") + (
 ))
 
 
+_PROBE_RULES = _compile((
+    (r"Dense_0/kernel", lambda m: "linear.weight", _dense),
+    (r"Dense_0/bias", lambda m: "linear.bias", _same),
+))
+
+
 def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
     for k, v in tree.items():
         path = f"{prefix}{k}"
@@ -135,3 +143,9 @@ def flax_to_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
 def unet_flax_to_state_dict(params: Mapping[str, Any], batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict (f32 CPU tensors) for ``UNet``."""
     return _convert(params, batch_stats, unet_torch_name)
+
+
+def probe_flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict (f32 CPU tensors) for the head of ``LinearProbe`` from
+    the JAX ``ProbeState.params``."""
+    return _convert(params, {}, lambda path: _match(_PROBE_RULES, path, path))

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 from medical_image_segmentation_tpu_torch.core.registry import Registry
 from medical_image_segmentation_tpu_torch.data.decathlon import DecathlonDataset, DecathlonLoader
-from medical_image_segmentation_tpu_torch.data.loader import RANDOM, SEQUENTIAL, Loader, PairedLoader
+from medical_image_segmentation_tpu_torch.data.loader import QUASI_RANDOM, RANDOM, SEQUENTIAL, Loader, PairedLoader
 from medical_image_segmentation_tpu_torch.ops.augment import (
     BYOL_TV_VIEW1, BYOL_TV_VIEW2, BYOL_VIEW1, BYOL_VIEW2, ViewConfig,
 )
@@ -74,17 +74,22 @@ class SSLDataModule:
 
         return adapt(v1), adapt(v2)
 
-    def train_loader(self, batch_size: int, num_threads: int = 8, seed: int = 0) -> Loader:
+    def train_loader(self, batch_size: int, num_threads: int = 8, seed: int = 0,
+                     shard: Tuple[int, int] = (0, 1), distributed: bool = False,
+                     precrop: Optional[dict] = None) -> Loader:
+        """``precrop``: the host pre-crop spec of ``Loader`` (batches become
+        sample-major pre-cropped views); ``distributed`` takes the
+        page-local QUASI_RANDOM order."""
         if not self.train_store or not os.path.exists(self.train_store):
             raise FileNotFoundError(f"train store not found: {self.train_store!r}")
-        return Loader(self.train_store, batch_size, order=RANDOM,
-                      num_threads=num_threads, seed=seed, drop_last=True)
+        return Loader(self.train_store, batch_size, order=QUASI_RANDOM if distributed else RANDOM,
+                      num_threads=num_threads, seed=seed, shard=shard, drop_last=True, precrop=precrop)
 
-    def val_loader(self, batch_size: int, num_threads: int = 8) -> Loader:
+    def val_loader(self, batch_size: int, num_threads: int = 8, shard: Tuple[int, int] = (0, 1)) -> Loader:
         if not self.val_store or not os.path.exists(self.val_store):
             raise FileNotFoundError(f"val store not found: {self.val_store!r}")
         return Loader(self.val_store, batch_size, order=SEQUENTIAL,
-                      num_threads=num_threads, drop_last=False)
+                      num_threads=num_threads, shard=shard, drop_last=False)
 
 
 @DATAMODULES.register("RADIOLOGY_1M")

@@ -362,6 +362,16 @@ class PairedLoader:
     def timers(self):
         return self._imgs.timers
 
+    @property
+    def epoch(self) -> int:
+        """The epoch whose order the next ``iter()`` takes: the image
+        loader's counter, which drives both stores. A resume sets it."""
+        return self._imgs.epoch
+
+    @epoch.setter
+    def epoch(self, value: int) -> None:
+        self._imgs.epoch = value
+
     def _pairs(self):
         # one index stream drives both stores (same seed/epoch → same order,
         # but we fetch by explicit indices to be immune to loader drift)

@@ -13,9 +13,18 @@ running variance we hand it a copy scaled by k = n/(n-1) and scale the
 result back: torch then computes ``k·(m·rv + (1-m)·var_biased)``, so the
 buffer ends at exactly flax's update, with no second pass over the
 activations to recompute the batch statistics.
+
+Under ``--remat`` (``torch.utils.checkpoint`` around each residual block)
+the block's forward runs a second time during backward. That run sets
+``recomputing``: it normalizes exactly as the first (same kernel, batch
+statistics) but into throwaway copies of the running statistics, so the
+momentum is applied once per step, as flax's ``nn.remat`` does.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Iterable, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +43,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.recomputing = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -45,8 +55,24 @@ class BatchNorm(nn.Module):
         k = n / (n - 1)
         with torch.no_grad():
             scaled_var = self.running_var * k
-        y = F.batch_norm(x, self.running_mean, scaled_var, self.weight, self.bias,
+            running_mean = self.running_mean.clone() if self.recomputing else self.running_mean
+        y = F.batch_norm(x, running_mean, scaled_var, self.weight, self.bias,
                          True, 1.0 - self.momentum, self.eps)
-        with torch.no_grad():
-            self.running_var.copy_(scaled_var / k)
+        if not self.recomputing:
+            with torch.no_grad():
+                self.running_var.copy_(scaled_var / k)
         return y
+
+
+@contextlib.contextmanager
+def recomputing(modules: Iterable[torch.nn.Module]) -> Iterator[None]:
+    """Mark every ``BatchNorm`` under ``modules`` as recomputing for the
+    duration: their running statistics stay as they are."""
+    bns = [m for mod in modules for m in mod.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.recomputing = False

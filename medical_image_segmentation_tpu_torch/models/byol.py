@@ -4,6 +4,7 @@
 encoder + predictor MLP + a linear probe fed with detached backbone
 features, so the probe never trains the backbone. The momentum ("target")
 encoder is a second ``Encoder`` that ``train/byol_task.py`` EMA-updates.
+``remat`` checkpoints the backbone's residual blocks (``models/byol.py:47-61,81-93``).
 """
 
 from __future__ import annotations
@@ -19,9 +20,9 @@ from medical_image_segmentation_tpu_torch.models.resnet import ResNet
 
 class Encoder(nn.Module):
     def __init__(self, arch: str = "resnet18", in_channels: int = 3, low_res: bool = False,
-                 hidden_dim: int = 4096, proj_dim: int = 256):
+                 hidden_dim: int = 4096, proj_dim: int = 256, remat: bool = False):
         super().__init__()
-        self.backbone = ResNet(arch, in_channels, low_res)
+        self.backbone = ResNet(arch, in_channels, low_res, remat)
         self.projector = MLP(self.backbone.feature_dim, hidden_dim, proj_dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -40,9 +41,9 @@ class BYOLNet(nn.Module):
     """Online side of BYOL: encoder + predictor + (detached) linear probe."""
 
     def __init__(self, arch: str = "resnet18", in_channels: int = 3, low_res: bool = False,
-                 hidden_dim: int = 4096, proj_dim: int = 256, num_classes: int = 10):
+                 hidden_dim: int = 4096, proj_dim: int = 256, num_classes: int = 10, remat: bool = False):
         super().__init__()
-        self.encoder = Encoder(arch, in_channels, low_res, hidden_dim, proj_dim)
+        self.encoder = Encoder(arch, in_channels, low_res, hidden_dim, proj_dim, remat)
         self.predictor = MLP(proj_dim, hidden_dim, proj_dim)
         self.probe = nn.Linear(self.encoder.backbone.feature_dim, num_classes)
 

@@ -17,22 +17,34 @@
   then each stage's output — strides 2/4/8/16/32, or 1/2/4/8 for
   ``low_res`` — as NHWC views of the channels_last activations, for the
   U-Net decoder (``models/unet.py``).
-
-``remat`` is not ported yet.
+- ``remat`` (``models/resnet.py:129,165``): each residual block runs under
+  ``torch.utils.checkpoint`` when gradients are on, so its activations are
+  recomputed in backward instead of kept; the recompute leaves the
+  BatchNorm running statistics alone (``models/batchnorm.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from medical_image_segmentation_tpu_torch.models.batchnorm import BatchNorm
+from medical_image_segmentation_tpu_torch.models.batchnorm import BatchNorm, recomputing
 
 
 def _conv(in_ch: int, out_ch: int, k: int, stride: int = 1, padding: int = 0, groups: int = 1) -> nn.Conv2d:
     return nn.Conv2d(in_ch, out_ch, k, stride=stride, padding=padding, groups=groups, bias=False)
+
+
+def _checkpointed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` keeping only its input; the forward runs again in
+    backward with the block's BatchNorms marked as recomputing. The blocks
+    draw no random numbers, so no RNG state is stashed."""
+    return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing([block])))
 
 
 class BasicBlock(nn.Module):
@@ -101,13 +113,14 @@ RESNET_CONFIGS = {
 class ResNet(nn.Module):
     """ResNet backbone: NHWC images → (B, feature_dim) f32 pooled features."""
 
-    def __init__(self, arch: str = "resnet18", in_channels: int = 3, low_res: bool = False):
+    def __init__(self, arch: str = "resnet18", in_channels: int = 3, low_res: bool = False, remat: bool = False):
         super().__init__()
         if arch not in RESNET_CONFIGS:
             raise ValueError(f"unknown arch {arch!r}; available: {sorted(RESNET_CONFIGS)}")
         kind, stages, block_kw = RESNET_CONFIGS[arch]
         block_cls = BasicBlock if kind == "basic" else Bottleneck
         self.low_res = low_res
+        self.remat = remat
         if low_res:
             self.conv1 = _conv(in_channels, 64, 3, 1, 1)
         else:
@@ -136,8 +149,10 @@ class ResNet(nn.Module):
         pyramid = [x]
         if not self.low_res:
             x = self.maxpool(x)
+        remat = self.remat and torch.is_grad_enabled()
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = stage(x)
+            for block in stage:
+                x = _checkpointed(block, x) if remat else block(x)
             pyramid.append(x)
         if return_pyramid:
             return [t.permute(0, 2, 3, 1) for t in pyramid]

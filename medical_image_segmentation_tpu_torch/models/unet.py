@@ -10,6 +10,7 @@
 - head: a 3×3 conv with bias (flax's default init) to ``n_classes``
   logits, no activation.
 
+``remat`` checkpoints the encoder's residual blocks (``models/unet.py:70,88``).
 NHWC in, NHWC f32 logits out; channels_last inside. H and W must be
 multiples of 32 (five down/upsample stages).
 """
@@ -56,9 +57,9 @@ class DecoderBlock(nn.Module):
 
 class UNet(nn.Module):
     def __init__(self, arch: str = "resnet18", n_classes: int = 1, in_channels: int = 1,
-                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16)):
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16), remat: bool = False):
         super().__init__()
-        self.encoder = ResNet(arch, in_channels, low_res=False)
+        self.encoder = ResNet(arch, in_channels, low_res=False, remat=remat)
         e = self.encoder.feature_dim // 512
         in_ch, blocks = 512 * e, []
         # skips deepest first: stride 16, 8, 4, the stem at 2, none at 1

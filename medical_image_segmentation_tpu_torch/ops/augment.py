@@ -3,8 +3,9 @@ PyTorch.
 
 Port of ``medical_image_segmentation_tpu/ops/augment.py``: the BYOL half
 (``ViewConfig``, the canonical view configs, RandomResizedCrop sampling, the
-separable resample matrices, Gaussian blur, the elementwise tail and
-``two_view_augment``) and the segmentation half (``_nearest_matrix``,
+separable resample matrices, Gaussian blur, the elementwise tail,
+``two_view_augment``, and ``two_view_tail_augment`` for views the host
+pre-cropped) and the segmentation half (``_nearest_matrix``,
 ``segmentation_augment``, ``parse_hu_windows``, ``apply_hu_windows``). Same
 math, same NHWC tensors at the public functions; ``jax.random`` keys become
 one explicit ``torch.Generator``.
@@ -157,6 +158,15 @@ def sample_view_draws(generator: torch.Generator, batch: int, in_h: int, in_w: i
         for axis in ("y", "x"):
             d[f"blur_sigma_{axis}"] = _uniform(generator, batch, 0.1, 2.0)
             d[f"blur_coin_{axis}"] = _uniform(generator, batch) < cfg.blur_prob
+    d.update(sample_tail_draws(generator, batch, channels, cfg))
+    return d
+
+
+def sample_tail_draws(generator: torch.Generator, batch: int, channels: int,
+                      cfg: ViewConfig) -> Dict[str, torch.Tensor]:
+    """The draws of the elementwise tail alone (jitter, grayscale, window,
+    solarize), each (B,): what a host-pre-cropped view still needs."""
+    d: Dict[str, torch.Tensor] = {}
     if cfg.jitter_prob > 0.0:
         d["jitter_on"] = (_uniform(generator, batch) < cfg.jitter_prob).float()
         for name in ("brightness", "contrast", "saturation"):
@@ -253,6 +263,50 @@ def two_view_augment(
     device of ``images``."""
     v1 = augment_view(generator, images, cfg1, mean, std, dtype)
     v2 = augment_view(generator, images, cfg2, mean, std, dtype)
+    return v1, v2
+
+
+def precrop_supported(cfg: ViewConfig) -> bool:
+    """True if every op after ``cfg``'s crop is elementwise, so the host
+    pre-crop (``data/host_precrop.py``) plus the device tail can make the
+    view (``ops/augment.py:300-304``). Only Gaussian blur needs the
+    resample matrices."""
+    return cfg.blur_prob == 0.0
+
+
+def apply_view_tail(draws: Dict[str, torch.Tensor], views: torch.Tensor, cfg: ViewConfig,
+                    mean: Sequence[float], std: Sequence[float], dtype=torch.bfloat16) -> torch.Tensor:
+    """The elementwise tail of one host-pre-cropped (B, h, w, C) view from
+    the given draws (``ops/augment.py:307-321``)."""
+    if not precrop_supported(cfg):
+        raise ValueError("blur_prob > 0 requires the full device augment path")
+    return _elementwise_tail(draws, views.float(), cfg, mean, std, dtype)
+
+
+def augment_view_tail(generator: torch.Generator, views: torch.Tensor, cfg: ViewConfig,
+                      mean: Sequence[float], std: Sequence[float], dtype=torch.bfloat16) -> torch.Tensor:
+    """Sample one view's tail draws from ``generator`` and apply them."""
+    draws = sample_tail_draws(generator, views.shape[0], views.shape[-1], cfg)
+    return apply_view_tail(draws, views, cfg, mean, std, dtype)
+
+
+def two_view_tail_augment(
+    generator: torch.Generator,
+    views: torch.Tensor,                     # (2B, h, w, C) sample-major: rows 2i, 2i+1
+    cfg1: ViewConfig = BYOL_VIEW1,
+    cfg2: ViewConfig = BYOL_VIEW2,
+    mean: Tuple[float, ...] = (57.9764,),
+    std: Tuple[float, ...] = (60.4759,),
+    dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-view tail over what ``Loader(precrop=...)`` ships
+    (``ops/augment.py:324-350``): rows 2i and 2i+1 are sample i's two
+    pre-cropped views, so view 1 is the even rows and view 2 the odd ones."""
+    if views.shape[0] % 2:
+        raise ValueError("precrop views array must hold 2 views per sample")
+    vv = views.view(views.shape[0] // 2, 2, *views.shape[1:])
+    v1 = augment_view_tail(generator, vv[:, 0], cfg1, mean, std, dtype)
+    v2 = augment_view_tail(generator, vv[:, 1], cfg2, mean, std, dtype)
     return v1, v2
 
 

@@ -13,7 +13,11 @@
 - bf16 compute through ``torch.autocast`` when ``dtype`` is bf16; f32
   parameters, loss and norms.
 
-``embed_step`` (the KNN probe's feature pass) is not ported yet.
+``embed_step`` gives the eval-mode backbone features of the KNN probe and
+the linear probe. ``state_dict``/``load_state_dict`` carry the online and
+target networks, the optimizer and the step, which is what a resume
+restores (the trainer adds the data order and the augmentation stream).
+``remat`` checkpoints each residual block of both towers.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ class BYOLTask:
         probe_loss_weight: float = 1.0,
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        remat: bool = False,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -57,7 +62,7 @@ class BYOLTask:
                                "available (pass device='cpu' explicitly)")
         self.dtype = dtype
         self._net_kw = dict(arch=arch, in_channels=in_channels, low_res=low_res,
-                            hidden_dim=hidden_dim, proj_dim=proj_dim)
+                            hidden_dim=hidden_dim, proj_dim=proj_dim, remat=remat)
         self.online = BYOLNet(num_classes=num_classes, **self._net_kw)
         self.target = Encoder(**self._net_kw)
         for m in (self.online, self.target):
@@ -136,6 +141,25 @@ class BYOLTask:
         top5 = (logits.topk(k, dim=-1).indices == labels[:, None]).any(dim=-1).float().mean()
         return {"val/loss": F.cross_entropy(logits, labels), "val/acc@1": top1, "val/acc@5": top5}
 
+    @torch.no_grad()
+    def embed_step(self, images: torch.Tensor) -> torch.Tensor:
+        """Eval-mode (running-statistic) pooled backbone features, f32, for
+        the KNN feature bank (``train/byol_task.py:207-215``)."""
+        self.online.eval()
+        try:
+            with self._autocast():
+                return self.online.embed(images).float()
+        finally:
+            self.online.train()
+
     def state_dict(self) -> Dict[str, object]:
         return {"step": self.step, "online": self.online.state_dict(), "target": self.target.state_dict(),
                 "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """The inverse of ``state_dict``: online, target, optimizer and step.
+        Other keys of a checkpoint (the trainer's) are ignored."""
+        self.online.load_state_dict(state["online"])
+        self.target.load_state_dict(state["target"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])

@@ -9,7 +9,9 @@
 - eval: Dice loss, and hard Dice and IoU at threshold 0.5, on running
   BatchNorm statistics;
 - bf16 compute through ``torch.autocast`` when ``dtype`` is bf16; f32
-  parameters, loss and metrics.
+  parameters, loss and metrics;
+- ``remat`` checkpoints each residual block of the encoder;
+  ``state_dict``/``load_state_dict`` carry the model, optimizer and step.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class SegmentationTask:
         loss: str = "dice",
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
+        remat: bool = False,
     ):
         if loss not in ("dice", "dice_ce"):
             raise ValueError(f"loss must be 'dice' or 'dice_ce', got {loss!r}")
@@ -51,7 +54,7 @@ class SegmentationTask:
                                "available (pass device='cpu' explicitly)")
         self.dtype = dtype
         self._loss = dice_ce if loss == "dice_ce" else dice_loss
-        self._net_kw = dict(arch=arch, n_classes=n_classes, in_channels=in_channels)
+        self._net_kw = dict(arch=arch, n_classes=n_classes, in_channels=in_channels, remat=remat)
         self.model = UNet(**self._net_kw).to(self.device, memory_format=torch.channels_last)
         self.schedule = linear_warmup_cosine_annealing(
             learning_rate, warmup_epochs, max_epochs, eta_min=min_lr, steps_per_epoch=steps_per_epoch)
@@ -106,3 +109,9 @@ class SegmentationTask:
 
     def state_dict(self) -> Dict[str, object]:
         return {"step": self.step, "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """The inverse of ``state_dict``; other keys are ignored."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])

@@ -17,9 +17,13 @@ normalize) → one ``SegmentationTask.train_step``.
   last; the final one is written after the test pass.
 - SIGTERM/SIGINT: the current step finishes, a checkpoint is written and
   the run returns 0.
-
-Not ported yet (each raises when set): ``--resume``, ``--remat``,
-``--profile``. ``--skip_hbm_check`` and ``--force_hbm`` have no effect.
+- ``--resume`` (``train_segmentation.py:154-171``) restores the latest
+  checkpoint of ``--checkpoint_dir``: the task, the loader's epoch and the
+  augmentation generator, and skips the batches a mid-epoch checkpoint
+  already trained.
+- ``--remat`` checkpoints the encoder's residual blocks; ``--profile N``
+  traces the first N steps and prints the loader's stage timers; the
+  memory guard (``core/hbm.py``) runs one probe step before training.
 """
 
 from __future__ import annotations
@@ -30,14 +34,16 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from medical_image_segmentation_tpu_torch.core.checkpoint import (
-    load_byol_encoder_into_unet, resolve_checkpoint_path, save_checkpoint,
+    load_byol_encoder_into_unet, load_checkpoint, resume_latest, save_checkpoint, trainer_state,
 )
+from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved
 from medical_image_segmentation_tpu_torch.core.metrics_logger import CSVMetricsLogger
+from medical_image_segmentation_tpu_torch.core.profiling import StepProfiler
 from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
 from medical_image_segmentation_tpu_torch.data.device_feed import device_arrays
 from medical_image_segmentation_tpu_torch.eval.sliding_window import make_unet_window_fn, sliding_window_predict
@@ -70,7 +76,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", help="torch device; cuda raises if absent")
     ap.add_argument("--log_dir", default="logs")
     ap.add_argument("--checkpoint_dir", default="checkpoints/seg")
-    ap.add_argument("--resume", action="store_true", help="not ported yet")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --checkpoint_dir: weights, optimizer, step, "
+                         "data order and augmentation stream")
     ap.add_argument("--checkpoint_every_epochs", type=int, default=1,
                     help="periodic checkpoint cadence (0 = final checkpoint only)")
     ap.add_argument("--ssl_checkpoint", default=None,
@@ -87,18 +95,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--limit_steps_per_epoch", type=int, default=0)
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--fp32", dest="bf16", action="store_false")
-    ap.add_argument("--remat", action="store_true", help="not ported yet")
-    ap.add_argument("--skip_hbm_check", action="store_true", help="no effect: no memory guard in the port yet")
-    ap.add_argument("--force_hbm", action="store_true", help="no effect: no memory guard in the port yet")
-    ap.add_argument("--profile", type=int, default=0, metavar="N", help="not ported yet")
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint each residual block of the encoder: less activation memory")
+    ap.add_argument("--skip_hbm_check", action="store_true",
+                    help="skip the pre-flight memory guard (one probe step, core/hbm.py)")
+    ap.add_argument("--force_hbm", action="store_true",
+                    help="run even if the probe step does not fit the card's memory")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="trace the first N steps with torch.profiler into <log_dir>/trace and print the "
+                         "loader's stage timers each epoch")
     return ap.parse_args(argv)
 
 
-_UNPORTED = (
-    ("resume", lambda a: a.resume, "checkpoint resume"),
-    ("remat", lambda a: a.remat, "activation checkpointing"),
-    ("profile", lambda a: a.profile > 0, "the torch.profiler trace"),
-)
+_UNPORTED = ()  # every flag of the JAX trainer is ported
 
 
 @dataclasses.dataclass
@@ -106,7 +115,9 @@ class SegRun:
     """What a run did: the task at its end, the weights it started from
     (after the graft; CPU copies), one record per epoch (``steps``,
     ``seconds``, ``img_per_s``, ``loss``), the last val and the test
-    metrics, the last checkpoint written, and whether a signal stopped it."""
+    metrics, the last checkpoint written, whether a signal stopped it,
+    ``(step, lr)`` of every step it trained, the step it resumed from and
+    the batches it skipped, the memory guard's report and the trace file."""
 
     task: SegmentationTask
     start_state: Dict[str, torch.Tensor]
@@ -115,6 +126,11 @@ class SegRun:
     test: Optional[Dict[str, float]]
     checkpoint: str
     stopped: bool = False
+    schedule: List[Tuple[int, float]] = dataclasses.field(default_factory=list)
+    resumed_from: Optional[int] = None
+    skipped: int = 0
+    hbm: Optional[dict] = None
+    trace: Optional[str] = None
 
 
 def run(argv: Optional[Sequence[str]] = None) -> SegRun:
@@ -142,11 +158,11 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
         arch=args.arch, n_classes=1, in_channels=len(hu_windows) or 1,
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
         warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs, min_lr=args.min_lr,
-        steps_per_epoch=steps_per_epoch, loss=args.loss, dtype=dtype, device=device,
+        steps_per_epoch=steps_per_epoch, loss=args.loss, dtype=dtype, device=device, remat=args.remat,
     )
     task.init(args.seed)
     if args.ssl_checkpoint:
-        byol = torch.load(resolve_checkpoint_path(args.ssl_checkpoint), map_location="cpu", weights_only=True)
+        byol = load_checkpoint(args.ssl_checkpoint)
         task.model.load_state_dict(load_byol_encoder_into_unet(task.model.state_dict(), byol["online"]))
         print(f"initialized encoder from {args.ssl_checkpoint}", file=sys.stderr)
     start_state = {k: v.detach().cpu().clone() for k, v in task.model.state_dict().items()}
@@ -154,10 +170,23 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
     size = (args.image_size, args.image_size)
     mean, std = tuple(dm.mean), tuple(dm.std)
     aug_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    out = SegRun(task, start_state, [], None, None, "")
+    start_epoch = 0
+    resumed = resume_latest(args.checkpoint_dir, task, train_loader, aug_gen, steps_per_epoch) if args.resume else None
+    if resumed:
+        out.resumed_from, start_epoch, out.skipped = resumed
 
     def augment(imgs, msks, train: bool):
         return segmentation_augment(aug_gen if train else None, imgs, msks, out_size=size, mean=mean, std=std,
                                     train=train, dtype=dtype, hu_windows=hu_windows)
+
+    def probe():
+        imgs = torch.zeros(args.batch_size, *size, 1, dtype=torch.uint8, device=device)
+        with preserved(task, aug_gen):
+            task.train_step(*augment(imgs, imgs.float(), train=True))
+
+    out.hbm = guard_step(probe, label=f"seg train step (arch {args.arch}, batch {args.batch_size})",
+                         skip=args.skip_hbm_check, force=args.force_hbm, device=device)
 
     def run_eval(split: str) -> Optional[Dict[str, float]]:
         with contextlib.closing(dm.loader(split, args.batch_size, num_threads=args.num_workers)) as loader:
@@ -174,47 +203,62 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
 
     logger = CSVMetricsLogger(args.log_dir)
 
-    def checkpoint() -> str:
-        path = save_checkpoint(args.checkpoint_dir, task.state_dict(), task.step)
+    def checkpoint(next_epoch: int) -> str:
+        path = save_checkpoint(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step)
         print(f"checkpoint → {path}", file=sys.stderr)
         return path
 
-    epochs: List[Dict[str, float]] = []
-    val = None
-    with PreemptionGuard() as guard, contextlib.closing(train_loader):
-        for epoch in range(args.max_epochs):
-            t0 = time.time()
-            metrics, n_imgs = {}, 0
-            with contextlib.closing(device_arrays(train_loader, device)) as batches:
-                for i, (imgs, msks) in enumerate(batches):
-                    if args.limit_steps_per_epoch and i >= args.limit_steps_per_epoch:
-                        break
-                    metrics = task.train_step(*augment(imgs, msks, train=True))
-                    n_imgs += args.batch_size
-                    if guard.stop_requested:
-                        break
-            if guard.stop_requested:
-                return SegRun(task, start_state, epochs, val, None, checkpoint(), stopped=True)
-            if metrics:
-                loss = float(metrics["train/loss"])  # waits for the epoch's last step
-                dt = time.time() - t0
-                print(f"epoch {epoch}: train/loss={loss:.4f} {n_imgs / dt:.0f} img/s", file=sys.stderr)
-                logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
-                epochs.append({"steps": n_imgs // args.batch_size, "seconds": dt, "img_per_s": n_imgs / dt,
-                               "loss": loss})
-            val = run_eval("val")
-            if val:
-                print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in val.items()), file=sys.stderr)
-                logger.log(val, step=task.step, epoch=epoch)
-            if (args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0
-                    and epoch + 1 < args.max_epochs):  # the final epoch saves below
-                checkpoint()
+    prof = StepProfiler(args.profile, args.log_dir, device)
+    try:
+        with PreemptionGuard() as guard, contextlib.closing(train_loader):
+            for epoch in range(start_epoch, args.max_epochs):
+                skip = out.skipped if epoch == start_epoch else 0
+                t0 = time.time()
+                metrics, n_imgs = {}, 0
+                with contextlib.closing(device_arrays(train_loader, device)) as batches:
+                    for i, (imgs, msks) in enumerate(batches):
+                        if i >= steps_per_epoch:
+                            break
+                        if i < skip:
+                            continue  # trained before the checkpoint this run resumed from
+                        metrics = task.train_step(*augment(imgs, msks, train=True))
+                        out.schedule.append((task.step - 1, metrics["lr"]))
+                        n_imgs += args.batch_size
+                        prof.tick()
+                        if guard.stop_requested:
+                            out.checkpoint = checkpoint(epoch if i + 1 < steps_per_epoch else epoch + 1)
+                            out.stopped = True
+                            return out
+                if guard.stop_requested:
+                    out.checkpoint, out.stopped = checkpoint(epoch + 1), True
+                    return out
+                if metrics:
+                    loss = float(metrics["train/loss"])  # waits for the epoch's last step
+                    dt = time.time() - t0
+                    print(f"epoch {epoch}: train/loss={loss:.4f} {n_imgs / dt:.0f} img/s", file=sys.stderr)
+                    if args.profile:
+                        print(f"loader stages (epoch {epoch}):\n{train_loader.timers.report(reset=True)}",
+                              file=sys.stderr)
+                    logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
+                    out.epochs.append({"steps": n_imgs // args.batch_size, "seconds": dt,
+                                       "img_per_s": n_imgs / dt, "loss": loss})
+                out.val = run_eval("val")
+                if out.val:
+                    print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in out.val.items()),
+                          file=sys.stderr)
+                    logger.log(out.val, step=task.step, epoch=epoch)
+                if (args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0
+                        and epoch + 1 < args.max_epochs):  # the final epoch saves below
+                    out.checkpoint = checkpoint(epoch + 1)
+    finally:
+        prof.stop()  # writes the trace on every exit path
+        out.trace = prof.path
 
-    test = run_eval("test")
+    out.test = test = run_eval("test")
     if test:
         print("test: " + " ".join(f"{k}={v:.4f}" for k, v in test.items()), file=sys.stderr)
         logger.log(test, step=task.step, epoch=args.max_epochs)
-    path = checkpoint()
+    out.checkpoint = checkpoint(args.max_epochs)
 
     if args.full_res_window:
         _full_res_test(task, dm, args.full_res_window, mean, std, hu_windows, device, logger, args.max_epochs)
@@ -225,7 +269,7 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
                 save_combined_image_grid(imgs, task.predict_step(x).cpu().numpy(), msks, args.predict_grid)
                 print(f"prediction grid → {args.predict_grid}", file=sys.stderr)
                 break
-    return SegRun(task, start_state, epochs, val, test, path)
+    return out
 
 
 def _full_res_test(task, dm, window, mean, std, hu_windows, device, logger, epoch) -> None:

@@ -9,14 +9,32 @@ host threads → ``data/device_feed.py`` copies it to the device one batch
 ahead → the two-view augmentation makes both views on the device → one
 ``BYOLTask.train_step`` (online fwd/bwd, target fwd, LARS, EMA).
 
-Augmentation routing is the JAX trainer's (``train_ssl.py:263-294``): on
-CUDA, configs whose every enabled augmentation the fused kernel implements
-take it; blur/jitter recipes, uint16 stores and the CPU take the plain
+Augmentation routing is the JAX trainer's (``train_ssl.py:263-294``):
+``--host_precrop`` crops on the host and runs only the elementwise tail
+(``two_view_tail_augment``) on the device; otherwise, on CUDA, configs
+whose every enabled augmentation the fused kernel implements take it;
+blur/jitter recipes, uint16 stores and the CPU take the plain
 ``ops/augment.py::two_view_augment``.
 
-Not ported yet (each flag raises when set away from its default):
-``--resume``, ``--model_parallel > 1``, ``--remat``, ``--host_precrop``,
-``--knn_every_epochs > 0``, ``--profile``, ``--run_single_validation``.
+Around the loop, as in the JAX trainer:
+
+- ``--run_single_validation`` loads ``--checkpoint_path`` (or the latest
+  step of ``--checkpoint_dir``) and runs one val pass, no training;
+- ``--resume`` restores the latest checkpoint: the task, the loader's
+  epoch and the augmentation generator; the batches a mid-epoch checkpoint
+  already trained are skipped without drawing anything;
+- the memory guard runs one probe step at the run's shapes before
+  training and refuses a run that does not fit the card
+  (``core/hbm.py``; ``--skip_hbm_check``, ``--force_hbm``);
+- SIGTERM/SIGINT: the current step finishes, a checkpoint is written and
+  the run returns (``train/resilience.py``);
+- ``--profile N`` traces the first N steps (``core/profiling.py``) and
+  prints the loader's stage timers each epoch;
+- ``--knn_every_epochs`` runs the KNN probe (``eval/knn.py``) on the val
+  store.
+
+Only ``--model_parallel > 1`` (tensor-parallel heads) is not ported; it
+raises.
 """
 
 from __future__ import annotations
@@ -27,18 +45,24 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from medical_image_segmentation_tpu_torch.core.checkpoint import save_checkpoint
+from medical_image_segmentation_tpu_torch.core.checkpoint import (
+    load_checkpoint, resume_latest, save_checkpoint, trainer_state,
+)
+from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved
 from medical_image_segmentation_tpu_torch.core.metrics_logger import CSVMetricsLogger
+from medical_image_segmentation_tpu_torch.core.profiling import StepProfiler
 from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
 from medical_image_segmentation_tpu_torch.data.device_feed import device_batches
-from medical_image_segmentation_tpu_torch.ops.augment import two_view_augment
+from medical_image_segmentation_tpu_torch.eval.knn import KNNEvaluator
+from medical_image_segmentation_tpu_torch.ops.augment import precrop_supported, two_view_augment, two_view_tail_augment
 from medical_image_segmentation_tpu_torch.ops.fused_augment import fused_supported, fused_two_view_augment
 from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
+from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -61,39 +85,47 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", help="torch device; cuda raises if absent")
     ap.add_argument("--log_dir", default="logs")
     ap.add_argument("--checkpoint_dir", default="checkpoints/ssl")
-    ap.add_argument("--resume", action="store_true", help="not ported yet")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --checkpoint_dir: weights, optimizer, step, "
+                         "data order and augmentation stream")
     ap.add_argument("--checkpoint_every_epochs", type=int, default=1)
     ap.add_argument("--val_every_epochs", type=int, default=1)
-    ap.add_argument("--knn_every_epochs", type=int, default=0, help="0 disables the KNN probe (not ported yet)")
-    ap.add_argument("--knn_bank_size", type=int, default=262144, help="KNN bank cap (KNN not ported yet)")
-    ap.add_argument("--knn_bank_chunk", type=int, default=65536, help="KNN chunk (KNN not ported yet)")
+    ap.add_argument("--knn_every_epochs", type=int, default=0, help="0 disables the KNN probe")
+    ap.add_argument("--knn_bank_size", type=int, default=262144,
+                    help="cap on the KNN feature-bank rows (the train loader's first N); 0 = unbounded")
+    ap.add_argument("--knn_bank_chunk", type=int, default=65536,
+                    help="stream the similarity product over bank chunks of this many rows; 0 = unchunked")
     ap.add_argument("--val_full_image", action="store_true",
                     help="validate on full stored images (normalize only) instead of a center crop")
     ap.add_argument("--probe_loss_weight", type=float, default=1.0)
     ap.add_argument("--limit_steps_per_epoch", type=int, default=0, help="smoke-test cap (0 = full epoch)")
-    ap.add_argument("--run_single_validation", action="store_true", help="not ported yet")
+    ap.add_argument("--run_single_validation", action="store_true",
+                    help="load --checkpoint_path (or the latest in --checkpoint_dir) and run one val pass, "
+                         "no training")
     ap.add_argument("--checkpoint_path", default=None)
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--fp32", dest="bf16", action="store_false")
     ap.add_argument("--aug_recipe", default=None, choices=["ffcv", "torchvision"])
     ap.add_argument("--window_prob", type=float, default=None)
-    ap.add_argument("--host_precrop", action="store_true", help="not ported yet")
-    ap.add_argument("--remat", action="store_true", help="not ported yet")
-    ap.add_argument("--skip_hbm_check", action="store_true", help="no effect: no memory guard in the port yet")
-    ap.add_argument("--force_hbm", action="store_true", help="no effect: no memory guard in the port yet")
+    ap.add_argument("--host_precrop", action="store_true",
+                    help="RandomResizedCrop in the loader's host workers: ship 2 crop² views instead of "
+                         "the full images and run only the elementwise tail on the device "
+                         "(blur-free recipes only)")
+    ap.add_argument("--remat", action="store_true",
+                    help="checkpoint each residual block: less activation memory, ~1/3 more backward work")
+    ap.add_argument("--skip_hbm_check", action="store_true",
+                    help="skip the pre-flight memory guard (one probe step, core/hbm.py)")
+    ap.add_argument("--force_hbm", action="store_true",
+                    help="run even if the probe step does not fit the card's memory")
     ap.add_argument("--model_parallel", type=int, default=1, metavar="N", help="only 1 in the port so far")
-    ap.add_argument("--profile", type=int, default=0, metavar="N", help="not ported yet")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="trace the first N steps with torch.profiler into <log_dir>/trace and print the "
+                         "loader's stage timers each epoch")
     return ap.parse_args(argv)
 
 
 _UNPORTED = (
-    ("resume", lambda a: a.resume, "checkpoint resume"),
     ("model_parallel", lambda a: a.model_parallel > 1, "tensor-parallel BYOL heads"),
-    ("remat", lambda a: a.remat, "activation checkpointing"),
-    ("host_precrop", lambda a: a.host_precrop, "host pre-crop"),
-    ("knn_every_epochs", lambda a: a.knn_every_epochs > 0, "the KNN probe"),
-    ("profile", lambda a: a.profile > 0, "the torch.profiler trace"),
-    ("run_single_validation", lambda a: a.run_single_validation, "checkpoint load + single validation"),
 )
 
 
@@ -126,15 +158,40 @@ def _val_preprocess(imgs: torch.Tensor, dm, full_image: bool = False) -> torch.T
     return ((x - mean) / std).contiguous()
 
 
+def precrop_spec(dm, cfg1, cfg2) -> dict:
+    """The ``Loader`` precrop spec of ``--host_precrop``, with the JAX
+    trainer's refusals (``train_ssl.py:167-182``)."""
+    if not (precrop_supported(cfg1) and precrop_supported(cfg2)):
+        raise SystemExit("--host_precrop requires an all-elementwise post-crop recipe "
+                         "(no GaussianBlur) — use the default ffcv recipe, not torchvision")
+    if (cfg1.crop_scale, cfg1.crop_ratio, cfg1.hflip_prob) != (cfg2.crop_scale, cfg2.crop_ratio, cfg2.hflip_prob):
+        raise SystemExit("--host_precrop needs both views to share crop geometry")
+    return {"out_hw": (dm.crop_size, dm.crop_size), "n_views": 2, "scale": cfg1.crop_scale,
+            "ratio": cfg1.crop_ratio, "hflip_prob": cfg1.hflip_prob}
+
+
 @dataclasses.dataclass
 class TrainRun:
-    """What a run did: the task at its end, one record per epoch
-    (``steps``, ``seconds``, ``img_per_s``, ``loss``) and whether the fused
-    kernel made the views."""
+    """What a run did: the task at its end; one record per epoch (``steps``,
+    ``seconds``, ``img_per_s``, ``loss``); ``(step, lr, tau)`` of every
+    step it trained; whether the fused kernel made the views; the last val
+    metrics and KNN accuracy; the step it resumed from and the batches it
+    skipped; the memory guard's report; the trace file; which host reader
+    served the train store ("native" or "python"); and whether a signal
+    stopped it."""
 
     task: object
     epochs: List[Dict[str, float]]
     used_kernel: bool
+    schedule: List[Tuple[int, float, float]] = dataclasses.field(default_factory=list)
+    val: Optional[Dict[str, float]] = None
+    knn_acc: Optional[float] = None
+    resumed_from: Optional[int] = None
+    skipped: int = 0
+    hbm: Optional[dict] = None
+    trace: Optional[str] = None
+    reader: str = ""
+    stopped: bool = False
 
 
 def run(argv: Optional[Sequence[str]] = None) -> TrainRun:
@@ -150,28 +207,46 @@ def run(argv: Optional[Sequence[str]] = None) -> TrainRun:
     if args.window_prob is not None:
         dm.window_prob = args.window_prob
     cfg1, cfg2 = dm.view_configs()
-    train_loader = dm.train_loader(args.batch_size, num_threads=args.num_workers, seed=args.seed)
-    steps_per_epoch = len(train_loader)
-    if steps_per_epoch == 0:
-        raise SystemExit(f"--batch_size {args.batch_size} exceeds the train set: every epoch would run 0 steps")
-    if args.limit_steps_per_epoch:
-        steps_per_epoch = min(steps_per_epoch, args.limit_steps_per_epoch)
-    total_steps = steps_per_epoch * args.max_epochs
-
+    precrop = precrop_spec(dm, cfg1, cfg2) if args.host_precrop else None
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+
+    if args.run_single_validation:
+        task = _make_task(args, dm, dtype, device, steps_per_epoch=1)
+        task.load_state_dict(load_checkpoint(args.checkpoint_path or args.checkpoint_dir))
+        val = _validate(task, dm, args, device, dm.val_loader(args.batch_size, num_threads=args.num_workers))
+        if val is None:
+            raise SystemExit(f"--run_single_validation: the val store {dm.val_store!r} holds no batch")
+        print(" ".join(f"{k}={v:.4f}" for k, v in val.items()))
+        return TrainRun(task=task, epochs=[], used_kernel=False, val=val)
+
+    train_loader = dm.train_loader(args.batch_size, num_threads=args.num_workers, seed=args.seed, precrop=precrop)
+    with contextlib.closing(train_loader):
+        steps_per_epoch = len(train_loader)
+        if steps_per_epoch == 0:
+            raise SystemExit(f"--batch_size {args.batch_size} exceeds the train set: every epoch would run 0 steps")
+        if args.limit_steps_per_epoch:
+            steps_per_epoch = min(steps_per_epoch, args.limit_steps_per_epoch)
+        task = _make_task(args, dm, dtype, device, steps_per_epoch)
+        return _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, device)
+
+
+def _make_task(args, dm, dtype, device, steps_per_epoch: int) -> BYOLTask:
     task = BYOLTask(
         arch=args.arch, in_channels=dm.channels, low_res=dm.low_res,
         hidden_dim=args.hidden_dim, proj_dim=args.projection_dim, num_classes=dm.NUM_CLASSES,
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
         warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs,
         base_ema_momentum=args.base_momentum, final_ema_momentum=args.final_momentum,
-        total_steps=total_steps, steps_per_epoch=steps_per_epoch,
-        probe_loss_weight=args.probe_loss_weight, dtype=dtype, device=device,
+        total_steps=steps_per_epoch * args.max_epochs, steps_per_epoch=steps_per_epoch,
+        probe_loss_weight=args.probe_loss_weight, dtype=dtype, device=device, remat=args.remat,
     )
     task.init(args.seed)
+    return task
 
+
+def _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, device) -> TrainRun:
     mean, std = tuple(dm.train_mean), tuple(dm.train_std)
-    use_kernel = (device.type == "cuda"
+    use_kernel = (not args.host_precrop and device.type == "cuda"
                   and fused_supported(cfg1, dm.channels) and fused_supported(cfg2, dm.channels)
                   # uint16 stores stay on the plain path in the trainer for now
                   and train_loader.dtype == np.uint8)
@@ -179,62 +254,135 @@ def run(argv: Optional[Sequence[str]] = None) -> TrainRun:
     has_labels = dm.has_train_labels
 
     def augment(imgs):
+        if args.host_precrop:
+            return two_view_tail_augment(aug_gen, imgs, cfg1, cfg2, mean, std, dtype)
         if use_kernel:
             return fused_two_view_augment(imgs, cfg1, cfg2, mean, std, dtype, generator=aug_gen)
         return two_view_augment(aug_gen, imgs, cfg1, cfg2, mean, std, dtype)
 
+    out = TrainRun(task=task, epochs=[], used_kernel=use_kernel,
+                   reader="native" if train_loader._native is not None else "python")
+    start_epoch = 0
+    resumed = resume_latest(args.checkpoint_dir, task, train_loader, aug_gen, steps_per_epoch) if args.resume else None
+    if resumed:
+        out.resumed_from, start_epoch, out.skipped = resumed
+
+    # the memory guard's probe: one step at the shapes the loader ships
+    # (sample-major views under --host_precrop, full stored images otherwise)
+    shape = ((2 * args.batch_size, dm.crop_size, dm.crop_size, train_loader.channels) if args.host_precrop
+             else (args.batch_size, *train_loader.out_hw, train_loader.channels))
+    img_dtype = torch.from_numpy(np.zeros(0, train_loader.dtype)).dtype
+
+    def probe():
+        imgs = torch.zeros(shape, dtype=img_dtype, device=device)
+        labels = torch.zeros(args.batch_size, dtype=torch.int64, device=device) if has_labels else None
+        with preserved(task, aug_gen):
+            task.train_step(*augment(imgs), labels)
+
+    out.hbm = guard_step(probe, label=f"ssl train step (arch {args.arch}, batch {args.batch_size})",
+                         skip=args.skip_hbm_check, force=args.force_hbm, device=device)
+
+    def checkpoint(next_epoch: int) -> None:
+        path = save_checkpoint(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step)
+        print(f"checkpoint → {path}", file=sys.stderr)
+
     logger = CSVMetricsLogger(args.log_dir)
-    epochs: List[Dict[str, float]] = []
-    with contextlib.closing(train_loader):
-        for epoch in range(args.max_epochs):
-            epochs += _train_epoch(task, train_loader, augment, has_labels, args, device, logger, epoch)
-            if args.val_every_epochs and (epoch + 1) % args.val_every_epochs == 0:
-                _validate(task, dm, args, device, logger, epoch)
-            if args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0:
-                path = save_checkpoint(args.checkpoint_dir, task.state_dict(), task.step)
-                print(f"checkpoint → {path}", file=sys.stderr)
-    return TrainRun(task=task, epochs=epochs, used_kernel=use_kernel)
-
-
-def _train_epoch(task, train_loader, augment, has_labels, args, device, logger, epoch) -> List[Dict[str, float]]:
-    """One epoch; its record, or none if it ran no step."""
-    t0 = time.time()
-    n_imgs, metrics = 0, {}
-    with contextlib.closing(device_batches(train_loader, device)) as batches:
-        for i, (imgs, labels) in enumerate(batches):
-            if args.limit_steps_per_epoch and i >= args.limit_steps_per_epoch:
-                break
-            v1, v2 = augment(imgs)
-            metrics = task.train_step(v1, v2, labels if has_labels else None)
-            n_imgs += args.batch_size
-            if i % 50 == 0:
-                logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
-    if not metrics:
-        return []
-    last_loss = float(metrics["loss"])  # waits for the epoch's last step
-    dt = time.time() - t0
-    print(f"epoch {epoch}: loss={last_loss:.4f} {n_imgs / dt:.0f} img/s "
-          f"lr={metrics['lr']:.4f} tau={metrics['momentum']:.5f}", file=sys.stderr)
-    return [{"steps": n_imgs // args.batch_size, "seconds": dt, "img_per_s": n_imgs / dt, "loss": last_loss}]
-
-
-def _validate(task, dm, args, device, logger, epoch) -> None:
+    prof = StepProfiler(args.profile, args.log_dir, device)
     try:
-        val_loader = dm.val_loader(args.batch_size, num_threads=args.num_workers)
-    except FileNotFoundError:
-        return
+        with PreemptionGuard() as guard:
+            for epoch in range(start_epoch, args.max_epochs):
+                skip = out.skipped if epoch == start_epoch else 0
+                t0 = time.time()
+                n_imgs, metrics = 0, {}
+                with contextlib.closing(device_batches(train_loader, device)) as batches:
+                    for i, (imgs, labels) in enumerate(batches):
+                        if i >= steps_per_epoch:
+                            break
+                        if i < skip:
+                            continue  # trained before the checkpoint this run resumed from
+                        metrics = task.train_step(*augment(imgs), labels if has_labels else None)
+                        out.schedule.append((task.step - 1, metrics["lr"], metrics["momentum"]))
+                        n_imgs += args.batch_size
+                        prof.tick()
+                        if guard.stop_requested:
+                            checkpoint(epoch if i + 1 < steps_per_epoch else epoch + 1)
+                            out.stopped = True
+                            return out
+                        if i % 50 == 0:
+                            logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
+                if guard.stop_requested:  # a signal during the epoch's last batches or its end
+                    checkpoint(epoch + 1)
+                    out.stopped = True
+                    return out
+                if metrics:
+                    last_loss = float(metrics["loss"])  # waits for the epoch's last step
+                    dt = time.time() - t0
+                    print(f"epoch {epoch}: loss={last_loss:.4f} {n_imgs / dt:.0f} img/s "
+                          f"lr={metrics['lr']:.4f} tau={metrics['momentum']:.5f}", file=sys.stderr)
+                    out.epochs.append({"steps": n_imgs // args.batch_size, "seconds": dt,
+                                       "img_per_s": n_imgs / dt, "loss": last_loss})
+                    if args.profile:
+                        print(f"loader stages (epoch {epoch}):\n{train_loader.timers.report(reset=True)}",
+                              file=sys.stderr)
+                if args.val_every_epochs and (epoch + 1) % args.val_every_epochs == 0:
+                    _validate_epoch(task, dm, args, device, logger, epoch, out)
+                if args.knn_every_epochs and (epoch + 1) % args.knn_every_epochs == 0:
+                    _knn_epoch(task, dm, args, device, logger, epoch, out)
+                if args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0:
+                    checkpoint(epoch + 1)
+    finally:
+        prof.stop()  # writes the trace on every exit path
+        out.trace = prof.path
+    return out
+
+
+def _validate(task, dm, args, device, val_loader) -> Optional[Dict[str, float]]:
+    """Mean over ``val_loader``'s batches of the probe's val metrics (the
+    loader is closed); None if it had no batch."""
     aggr = {"val/loss": 0.0, "val/acc@1": 0.0, "val/acc@5": 0.0}
     n_b = 0
-    with contextlib.closing(val_loader):
-        for imgs, labels in device_batches(val_loader, device):
+    with contextlib.closing(val_loader), contextlib.closing(device_batches(val_loader, device)) as batches:
+        for imgs, labels in batches:
             m = task.val_step(_val_preprocess(imgs, dm, args.val_full_image), labels)
             for k in aggr:
                 aggr[k] += float(m[k])
             n_b += 1
-    if n_b:
-        aggr = {k: v / n_b for k, v in aggr.items()}
-        print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in aggr.items()), file=sys.stderr)
-        logger.log(aggr, step=task.step, epoch=epoch)
+    return {k: v / n_b for k, v in aggr.items()} if n_b else None
+
+
+def _validate_epoch(task, dm, args, device, logger, epoch, out: TrainRun) -> None:
+    try:
+        val_loader = dm.val_loader(args.batch_size, num_threads=args.num_workers)
+    except FileNotFoundError:
+        return
+    out.val = _validate(task, dm, args, device, val_loader)
+    if out.val:
+        print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in out.val.items()), file=sys.stderr)
+        logger.log(out.val, step=task.step, epoch=epoch)
+
+
+def _knn_epoch(task, dm, args, device, logger, epoch, out: TrainRun) -> None:
+    """The KNN probe (``train_ssl.py:413-442``): a bank from the train
+    store's first ``--knn_bank_size`` images in the run's order, scored on
+    the val store; both probe loaders are closed on every path."""
+    try:
+        bank_loader = dm.train_loader(args.batch_size, num_threads=args.num_workers, seed=args.seed)
+    except FileNotFoundError:
+        return
+    with contextlib.closing(bank_loader):
+        try:
+            val_loader = dm.val_loader(args.batch_size, num_threads=args.num_workers)
+        except FileNotFoundError:
+            return
+        with contextlib.closing(val_loader), \
+                contextlib.closing(device_batches(bank_loader, device)) as bank, \
+                contextlib.closing(device_batches(val_loader, device)) as val:
+            ev = KNNEvaluator(num_classes=dm.NUM_CLASSES, max_bank_size=args.knn_bank_size or None,
+                              bank_chunk_size=args.knn_bank_chunk or None)
+            out.knn_acc = ev.evaluate(lambda x: task.embed_step(_val_preprocess(x, dm, args.val_full_image)),
+                                      bank, val)
+    print(f"epoch {epoch}: online_knn_val_acc={out.knn_acc:.4f}", file=sys.stderr)
+    logger.log({"online_knn_val_acc": out.knn_acc}, step=task.step, epoch=epoch)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -94,7 +94,7 @@ def test_trains_from_the_byol_online_backbone(tmp_path, stores, byol_ckpt):
         assert all(0.0 <= v <= 1.0 for v in metrics.values()), metrics
     assert result.checkpoint == str(tmp_path / "ckpt" / "6.pt") and not result.stopped
     saved = torch.load(result.checkpoint, weights_only=True)
-    assert saved["step"] == 6 and set(saved) == {"step", "model", "optimizer"}
+    assert saved["step"] == 6 and set(saved) == {"step", "model", "optimizer", "epoch", "aug_generator"}
     (metrics_csv,) = glob.glob(str(tmp_path / "logs" / "**" / "metrics.csv"), recursive=True)
     with open(metrics_csv) as f:
         rows = list(csv.DictReader(f))
@@ -175,8 +175,12 @@ def test_sigterm_checkpoints_and_stops(tmp_path, stores, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--resume"], ["--remat"], ["--profile", "3"]])
 def test_unported_flags_raise(tmp_path, stores, flags):
-    with pytest.raises(SystemExit, match="not ported"):
-        train_segmentation.main(_argv(tmp_path, stores, *flags))
+    """The segmentation trainer refuses none of the JAX trainer's flags
+    any more: these three, once refused, pass the refusal (their runs are
+    tested in test_torch_train_flags.py and test_torch_resume.py)."""
+    assert train_segmentation._UNPORTED == ()
+    train_segmentation.refuse_unported(train_segmentation.parse_args(_argv(tmp_path, stores, *flags)),
+                                       train_segmentation._UNPORTED)
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch, tmp_path, stores):

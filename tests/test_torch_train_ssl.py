@@ -53,7 +53,8 @@ def test_main_trains_two_steps_on_cpu(radiology_store, tmp_path):
     assert float(rows[0]["lr"]) > 0.0  # warmup 0: the first step moves the weights
     (ckpt,) = glob.glob(str(tmp_path / "ckpt" / "*.pt"))
     state = torch.load(ckpt, weights_only=True)
-    assert state["step"] == 2 and set(state) == {"step", "online", "target", "optimizer"}
+    assert state["step"] == 2 and set(state) == {"step", "online", "target", "optimizer", "epoch", "aug_generator"}
+    assert state["epoch"] == 1  # the next step reads epoch 1's order
 
 
 def test_run_reports_its_epochs_and_route(radiology_store, tmp_path):
@@ -68,8 +69,16 @@ def test_run_reports_its_epochs_and_route(radiology_store, tmp_path):
     ["--knn_every_epochs", "1"], ["--profile", "3"], ["--run_single_validation"],
 ])
 def test_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(SystemExit, match="not ported"):
-        train_ssl.main(_argv(tmp_path, *flags))
+    """Of the flags the port once refused, only ``--model_parallel > 1``
+    still raises; the others pass the refusal (their runs are tested in
+    test_torch_train_flags.py and test_torch_resume.py)."""
+    args = train_ssl.parse_args(_argv(tmp_path, *flags))
+    if flags[0] == "--model_parallel":
+        with pytest.raises(SystemExit, match="not ported"):
+            train_ssl.main(_argv(tmp_path, *flags))
+    else:
+        train_ssl.refuse_unported(args)
+    assert [flag for flag, _, _ in train_ssl._UNPORTED] == ["model_parallel"]
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch, tmp_path):
