@@ -74,9 +74,45 @@ The SSL path's phases, each at the BYOL width of phase 6:
 16. hbm: the memory guard's report on both configurations, and the task
    and generator bit-equal across its probe step.
 
+The volumetric path's phases, at the 3D trainers' defaults (``UNet3D`` of
+features (32, 64, 128, 256), GroupNorm, bf16, volumes fitted to 64×96×96,
+crops of 32×64×64, batch 4; volumetric BYOL with hidden 4096 and projection
+256) on synthetic NIfTI written from a seed: 32 labelled volumes of about
+96×96×64 on disk with ±8 of ragged extent and sphere masks, split 24/4/4,
+and four volumes of 160×160×80 (one 160×152×80) to serve. No hand-written
+kernel lies on this path, and the run fails if one is launched in it.
+
+17. vol_parity: two f32 ``Segmentation3DTask`` steps at a small width
+   (features (8, 16, 32), 16×32×32, batch 2), card against CPU, held as
+   phases 4-5 are.
+18. ssl3d_train: the volumetric BYOL trainer's entry point, 2 epochs × 6
+   steps with ``--device_cache``: finite losses, every backbone parameter
+   moved, the checkpoint written.
+19. seg3d_train: the 3D segmentation trainer's entry point from that
+   checkpoint (``--ssl_checkpoint``), 2 epochs × 6 steps, val each epoch,
+   test, then ``--full_res_window 32 64 64``. The encoder must start equal
+   to the BYOL online backbone, every parameter must move, Dice/IoU must
+   lie in [0, 1]. Once more with ``--device_cache`` for one epoch: its
+   first loss equals the plain route's to the bit (the same batch through
+   the same weights) and the rest of the epoch within 1e-2 relative (a
+   backward convolution may sum in another order from run to run).
+20. resume3d: that trainer stopped by SIGTERM after step 8 of 2 × 6 and
+   resumed, held as phase 12.
+21. predict3d: the predict3d entry point on the four volumes (64 windows
+   each), twice (cold, warm): mask files of the inputs' (X, Y, Z) shapes,
+   one of them against the task's own sliding-window prediction on the
+   (Z, X, Y) volume (≥ 99.9% of voxels), and on a volume of exactly one
+   window the f32 sliding-window logits against the plain eval forward
+   (1e-5 of the largest logit). Prints megavoxels a second.
+22. seg3d_step: device-resident augmentation + step by CUDA events at batch
+   4 and batch 32, the FLOPs of a step, the peak device memory with and
+   without remat (loss equal to 1e-6), the step's kernel count and device
+   time by kind under ``torch.profiler``, the volumetric BYOL step, and
+   the memory guard's report.
+
 TF32 is off for both cuDNN and cuBLAS, so every f32 op here is full f32;
 the training steps run in bf16 under autocast, which TF32 does not touch.
-The last two lines are the kernels' JSON record and
+The last lines are the card, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. The run also fails if the port loaded
 ``jax`` or any module of the JAX package.
 
@@ -379,6 +415,8 @@ def step_parity(tag: str, train, device: str) -> None:
     loss_rel = max(abs(a - b) / abs(a) for a, b in zip(cpu_losses, card_losses))
     fields = dict(steps=len(card_losses), loss_rel=loss_rel, losses=card_losses)
     for group, keys in (("params", names), ("bn_stats", set(cpu_sd) - names)):
+        if not keys:  # GroupNorm keeps no statistics
+            continue
         err, spread = group_err(card_sd, cpu_sd, keys), group_err(spread_sd, cpu_sd, keys)
         check(err <= max(1e-3, 3 * spread), f"{tag}: card/CPU step parity: {group} {err} (CPU spread {spread})")
         fields.update({f"{group}_rel": err, f"{group}_cpu_spread": spread})
@@ -1138,6 +1176,443 @@ def run_hbm(torch, fa, card: str) -> None:
           card=repr(card))
 
 
+# The volumetric phases run the 3D trainers' defaults at full width
+# (``train/train_segmentation3d.py``: UNet3D (32, 64, 128, 256), GroupNorm,
+# bf16, volume 64×96×96, crop 32×64×64, batch 4; ``train/train_ssl3d.py``:
+# hidden 4096, projection 256) on synthetic NIfTI volumes.
+VOL_DEVICE = "cuda"
+VOL_FEATURES = (32, 64, 128, 256)
+VOL_SIZE, VOL_CROP, VOL_BATCH = (64, 96, 96), (32, 64, 64), 4
+VOL_DISK, VOL_RAGGED = (96, 96, 64), 8                  # (X, Y, Z) on disk, ± this much on each axis
+VOL_SPLITS = {"train": 24, "val": 4, "test": 4}
+VOL_EPOCHS, VOL_STEPS, VOL_RESUME_STOP = 2, 6, 8
+VOL_HIDDEN, VOL_PROJ = 4096, 256
+VOL_PREDICT = [(160, 160, 80), (160, 160, 80), (160, 152, 80), (160, 160, 80)]   # (X, Y, Z) of the volumes to serve
+VOL_PREDICT_WINDOWS = 64                                # windows of VOL_CROP each of them takes
+VOL_STEP_BATCHES = (4, 32)
+VOL_PARITY = dict(features=(8, 16, 32), crop=(16, 32, 32), batch=2)
+
+
+def sphere_volume(rng, shape):
+    """(int16 CT-like volume, 0/1 uint8 mask) of ``shape``: a bright ball of
+    random centre and radius on noise."""
+    import numpy as np
+
+    axes = np.ogrid[tuple(slice(n) for n in shape)]
+    centre = [rng.integers(n // 3, 2 * n // 3 + 1) for n in shape]
+    r = rng.integers(min(shape) // 6, min(shape) // 3)
+    mask = sum((a - c) ** 2 for a, c in zip(axes, centre)) <= r * r
+    img = rng.normal(-150.0, 80.0, shape).astype(np.float32) + 450.0 * mask
+    return img.astype(np.int16), mask.astype(np.uint8)
+
+
+def write_volumes(workdir: str):
+    """The Decathlon-style directory (imagesTr, labelsTr, split.json) and
+    the directory of larger volumes to serve; returns both and the names."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.nifti import write_nifti
+
+    rng = np.random.default_rng(0)
+    root = os.path.join(workdir, "task3d")
+    for sub in ("imagesTr", "labelsTr", "serve"):
+        os.makedirs(os.path.join(root, sub))
+    names = [f"vol_{i:03d}" for i in range(sum(VOL_SPLITS.values()))]
+    for name in names:
+        shape = tuple(int(n + rng.integers(-VOL_RAGGED, VOL_RAGGED + 1)) for n in VOL_DISK)
+        img, mask = sphere_volume(rng, shape)
+        write_nifti(os.path.join(root, "imagesTr", f"{name}.nii.gz"), img)
+        write_nifti(os.path.join(root, "labelsTr", f"{name}.nii.gz"), mask)
+    split, start = {}, 0
+    for k, n in VOL_SPLITS.items():
+        split[k] = names[start:start + n]
+        start += n
+    with open(os.path.join(root, "split.json"), "w") as f:
+        json.dump(split, f)
+    for i, shape in enumerate(VOL_PREDICT):
+        write_nifti(os.path.join(root, "serve", f"scan_{i}.nii.gz"), sphere_volume(rng, shape)[0])
+    return root
+
+
+def spheres_batch(torch, rng, batch: int, dims):
+    """A (B, D, H, W, 1) f32 volume batch in 0..1 and its masks, on the card."""
+    import numpy as np
+
+    pairs = [sphere_volume(rng, dims) for _ in range(batch)]
+    vols = np.stack([(v - v.min()) / float(v.max() - v.min()) for v, _ in pairs]).astype(np.float32)[..., None]
+    masks = np.stack([m for _, m in pairs]).astype(np.float32)[..., None]
+    return torch.from_numpy(vols).to(VOL_DEVICE), torch.from_numpy(masks).to(VOL_DEVICE)
+
+
+def run_vol_parity(torch, device: str = "cuda"):
+    """3D U-Net segmentation at a small width (GroupNorm, Dice)."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+
+    kw = dict(features=VOL_PARITY["features"], learning_rate=0.5, warmup_epochs=0, max_epochs=2, min_lr=0.01,
+              steps_per_epoch=1, dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    batches = []
+    for _ in range(2):
+        pairs = [sphere_volume(rng, VOL_PARITY["crop"]) for _ in range(VOL_PARITY["batch"])]
+        x = (np.stack([v for v, _ in pairs])[..., None].astype(np.float32) + 100.0) / 250.0
+        batches.append((torch.from_numpy(x), torch.from_numpy(np.stack([m for _, m in pairs])[..., None].astype(np.float32))))
+
+    def train(dev, scale):
+        task = Segmentation3DTask(device=dev, **kw)
+        task.init(0)
+        losses = [float(task.train_step((x * scale).to(dev), m.to(dev))["train/loss"]) for x, m in batches]
+        names = {k for k, _ in task.model.named_parameters()}
+        return losses, {k: v.detach().cpu() for k, v in task.model.state_dict().items()}, names
+
+    step_parity("vol_parity", train, device)
+
+
+def vol_argv(root: str, workdir: str, name: str, *extra) -> list:
+    """The 3D segmentation trainer's argv at full width, logs and
+    checkpoints under ``<workdir>/<name>``."""
+    return ["--device", VOL_DEVICE, "--images_dir", os.path.join(root, "imagesTr"),
+            "--masks_dir", os.path.join(root, "labelsTr"), "--split_file", os.path.join(root, "split.json"),
+            "--volume_size", *map(str, VOL_SIZE), "--crop_size", *map(str, VOL_CROP),
+            "--features", *map(str, VOL_FEATURES), "--batch_size", str(VOL_BATCH), "--warmup_epochs", "0",
+            "--seed", "0", "--log_dir", os.path.join(workdir, name, "logs"),
+            "--checkpoint_dir", os.path.join(workdir, name, "ckpt"), *extra]
+
+
+def steady_ms(result) -> float:
+    """Trainer ms per step over the epochs after the first."""
+    steady = result.epochs[1:]
+    return 1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
+
+
+def run_ssl3d_train(torch, root: str, workdir: str, card: str) -> str:
+    """The volumetric BYOL trainer at full width with the corpus on the
+    card; returns the final checkpoint's path."""
+    from medical_image_segmentation_tpu_torch.train import train_ssl3d
+    from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
+
+    n_steps = VOL_EPOCHS * VOL_STEPS
+    argv = ["--device", VOL_DEVICE, "--images_dir", os.path.join(root, "imagesTr"),
+            "--volume_size", *map(str, VOL_SIZE), "--crop_size", *map(str, VOL_CROP),
+            "--features", *map(str, VOL_FEATURES), "--hidden_dim", str(VOL_HIDDEN), "--projection_dim", str(VOL_PROJ),
+            "--batch_size", str(VOL_BATCH),
+            "--max_epochs", str(VOL_EPOCHS), "--limit_steps_per_epoch", str(VOL_STEPS), "--warmup_epochs", "0",
+            "--checkpoint_every_epochs", "0", "--device_cache", "--seed", "0",
+            "--log_dir", os.path.join(workdir, "ssl3d", "logs"), "--checkpoint_dir", os.path.join(workdir, "ssl3d", "ckpt")]
+    t0 = time.time()
+    result = train_ssl3d.run(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    task = result.task
+    check(task.step == n_steps and not result.stopped, f"ssl3d trainer ran {task.step} steps, expected {n_steps}")
+    losses = [float(x) for x in result.losses]
+    check(len(losses) == n_steps and all(math.isfinite(x) and 0.0 <= x <= 4.0 for x in losses), f"bad losses {losses}")
+    init = BYOLTask(volumetric=True, features3d=VOL_FEATURES, in_channels=1, hidden_dim=VOL_HIDDEN,
+                    proj_dim=VOL_PROJ, num_classes=2, device="cpu")
+    init.init(0)
+    init_sd = init.online.state_dict()
+    params = dict(task.online.named_parameters())
+    still = [k for k, p in params.items() if torch.equal(p.detach().cpu(), init_sd[k])]
+    backbone = [k for k in params if k.startswith("encoder.backbone.")]
+    # without a probe loss the probe gets no gradient: its bias (rank 1, not decayed) stays
+    check(backbone and set(still) <= {"probe.bias"}, f"parameters that did not move: {still}")
+    n_vols = sum(VOL_SPLITS.values())
+    check(result.corpus_bytes == n_vols * VOL_SIZE[0] * VOL_SIZE[1] * VOL_SIZE[2] * 4,
+          f"corpus on the card: {result.corpus_bytes} bytes")
+    check(result.hbm is not None and not result.hbm["oversubscribed"], f"ssl3d guard report {result.hbm}")
+    check(os.path.exists(result.checkpoint) and result.checkpoint.endswith(f"{n_steps}.pt"),
+          f"no final volumetric BYOL checkpoint ({result.checkpoint})")
+    phase("ssl3d_train", steps=task.step, losses=[round(x, 4) for x in losses],
+          backbone_params_moved=f"{len(set(backbone) - set(still))}/{len(backbone)}",
+          params_moved=f"{len(params) - len(still)}/{len(params)}", corpus_mib=result.corpus_bytes / 2**20,
+          guard_peak_gib=result.hbm["projected_peak"] / 2**30, wall_s=round(wall, 2),
+          first_epoch_ms_per_step=1000.0 * result.epochs[0]["seconds"] / result.epochs[0]["steps"],
+          steady_ms_per_step=steady_ms(result), steady_vol_per_s=VOL_BATCH * 1000.0 / steady_ms(result),
+          card=repr(card))
+    return result.checkpoint
+
+
+def run_seg3d_train(torch, root: str, workdir: str, ssl_ckpt: str, card: str) -> str:
+    """The 3D segmentation trainer at full width, its encoder grafted from
+    the volumetric BYOL checkpoint; then one epoch from the corpus on the
+    card against the plain route's first epoch. Returns the checkpoint."""
+    from medical_image_segmentation_tpu_torch.train import train_segmentation3d
+
+    n_steps = VOL_EPOCHS * VOL_STEPS
+    common = ["--limit_steps_per_epoch", str(VOL_STEPS), "--ssl_checkpoint", ssl_ckpt]
+    t0 = time.time()
+    result = train_segmentation3d.run(vol_argv(root, workdir, "seg3d", *common, "--max_epochs", str(VOL_EPOCHS),
+                                               "--full_res_window", *map(str, VOL_CROP)))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+
+    online = torch.load(ssl_ckpt, map_location="cpu", weights_only=True)["online"]
+    enc = [k for k in result.start_state if k.startswith(("enc", "down"))]
+    grafted = [k for k in enc if torch.equal(result.start_state[k], online["encoder.backbone." + k])]
+    check(enc and len(grafted) == len(enc), f"encoder after the graft: {len(grafted)}/{len(enc)} equal to BYOL online")
+    task = result.task
+    check(task.step == n_steps and not result.stopped, f"seg3d trainer ran {task.step} steps, expected {n_steps}")
+    losses = [float(x) for x in result.losses]
+    check(len(losses) == n_steps and all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in losses), f"bad losses {losses}")
+    params = dict(task.model.named_parameters())
+    still = [k for k, p in params.items() if torch.equal(p.detach().cpu(), result.start_state[k])]
+    check(not still, f"parameters that did not move: {still}")
+    metrics = {**result.val, **result.test, **result.full_res}
+    check(len(metrics) == 8 and all(0.0 <= v <= 1.0 for v in metrics.values()), f"bad val/test metrics {metrics}")
+    check(os.path.exists(result.checkpoint) and result.checkpoint.endswith(f"{n_steps}.pt"),
+          f"no final checkpoint ({result.checkpoint})")
+    check(result.hbm is not None and not result.hbm["oversubscribed"] and result.corpus_bytes == 0,
+          f"seg3d guard report {result.hbm}")
+
+    t0 = time.time()
+    cached = train_segmentation3d.run(vol_argv(root, workdir, "seg3d_cache", *common, "--max_epochs", "1",
+                                               "--device_cache", "--checkpoint_every_epochs", "0"))
+    torch.cuda.synchronize()
+    cache_wall = time.time() - t0
+    cached_losses = [float(x) for x in cached.losses]
+    n_vols = sum(VOL_SPLITS.values())
+    check(cached.corpus_bytes == n_vols * VOL_SIZE[0] * VOL_SIZE[1] * VOL_SIZE[2] * 5,
+          f"corpora on the card: {cached.corpus_bytes} bytes")
+    check(len(cached_losses) == VOL_STEPS and cached_losses[0] == losses[0],
+          f"--device_cache: first loss {cached_losses[0]} against the plain route's {losses[0]}")
+    cache_rel = max(abs(a - b) / abs(b) for a, b in zip(cached_losses, losses))
+    check(cache_rel <= 1e-2, f"--device_cache: first-epoch losses differ by {cache_rel} rel: {cached_losses} {losses}")
+    check(cached.hbm is not None and not cached.hbm["oversubscribed"]
+          and cached.hbm["projected_peak"] >= cached.corpus_bytes, f"--device_cache guard report {cached.hbm}")
+    phase("seg3d_train", steps=task.step, losses=[round(x, 4) for x in losses], grafted=f"{len(grafted)}/{len(enc)}",
+          params_moved=f"{len(params) - len(still)}/{len(params)}",
+          **{k.replace("/", "_"): v for k, v in metrics.items()}, wall_s=round(wall, 2),
+          first_epoch_ms_per_step=1000.0 * result.epochs[0]["seconds"] / result.epochs[0]["steps"],
+          steady_ms_per_step=steady_ms(result), steady_vol_per_s=VOL_BATCH * 1000.0 / steady_ms(result),
+          guard_peak_gib=result.hbm["projected_peak"] / 2**30,
+          cache_epoch_losses_bit_equal=cached_losses == losses[:VOL_STEPS], cache_losses_max_rel=cache_rel,
+          cache_corpus_mib=cached.corpus_bytes / 2**20, cache_guard_peak_gib=cached.hbm["projected_peak"] / 2**30,
+          cache_ms_per_step=epoch_ms(cached), cache_wall_s=round(cache_wall, 2), card=repr(card))
+    return result.checkpoint
+
+
+def run_resume3d(torch, root: str, workdir: str, card: str) -> None:
+    """The 3D segmentation trainer stopped by SIGTERM mid-epoch and resumed,
+    held as the 2D trainers are in ``run_resume``."""
+    from medical_image_segmentation_tpu_torch.core.checkpoint import load_checkpoint
+    from medical_image_segmentation_tpu_torch.train import train_segmentation3d
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+
+    total, skip = VOL_EPOCHS * VOL_STEPS, VOL_RESUME_STOP % VOL_STEPS
+    argv = vol_argv(root, workdir, "resume3d", "--max_epochs", str(VOL_EPOCHS), "--limit_steps_per_epoch",
+                    str(VOL_STEPS), "--checkpoint_every_epochs", "0", "--eval_every_epochs", "0")
+    t0 = time.time()
+    first = stopped_run(Segmentation3DTask, VOL_RESUME_STOP, train_segmentation3d.run, argv)
+    second = train_segmentation3d.run(argv + ["--resume"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    task = second.task
+    check(first.stopped and first.task.step == VOL_RESUME_STOP and first.test is None,
+          f"seg3d stopped at {first.task.step}")
+    check(second.resumed_from == VOL_RESUME_STOP and second.skipped == skip and task.step == total,
+          f"seg3d resumed from {second.resumed_from}, skipped {second.skipped}, ended at {task.step}")
+    check(first.schedule + second.schedule == [(s, task.schedule(s)) for s in range(total)],
+          "seg3d: the steps' lr differ from an uninterrupted run's")
+    check(second.val is None and second.test is not None, "seg3d: --eval_every_epochs 0 ran a val pass or no test")
+    saved = load_checkpoint(first.checkpoint)
+    check(saved["epoch"] == VOL_RESUME_STOP // VOL_STEPS, f"the stopped checkpoint's epoch is {saved['epoch']}")
+    fresh = Segmentation3DTask(features=VOL_FEATURES, device=VOL_DEVICE)
+    fresh.load_state_dict(saved)
+    gen = torch.Generator(device=VOL_DEVICE)
+    gen.set_state(saved["aug_generator"])
+    restored = {**cpu_tree(fresh.state_dict()), "epoch": saved["epoch"], "aug_generator": gen.get_state()}
+    check(trees_equal(restored, saved), "seg3d: the restored state differs from the saved one")
+    phase("resume3d", steps=f"{VOL_RESUME_STOP}+{total - VOL_RESUME_STOP}", skipped=skip, restored_bit_equal=True,
+          wall_s=round(wall, 2), card=repr(card))
+
+
+def run_predict3d(torch, root: str, workdir: str, ckpt: str, card: str) -> None:
+    """The predict3d entry point on the volumes to serve, cold then warm."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.nifti import read_nifti
+    from medical_image_segmentation_tpu_torch.data.volumes import minmax_unit, read_volume
+    from medical_image_segmentation_tpu_torch.eval.sliding_window import count_windows_3d, sliding_window_predict_3d
+    from medical_image_segmentation_tpu_torch.train import predict3d
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+
+    serve = os.path.join(root, "serve")
+    n_win = [count_windows_3d((z, x, y), VOL_CROP) for x, y, z in VOL_PREDICT]
+    check(all(n == VOL_PREDICT_WINDOWS for n in n_win),
+          f"the volumes take {n_win} windows of {VOL_CROP}, expected {VOL_PREDICT_WINDOWS} each")
+    summaries = {}
+    for run in ("cold", "warm"):
+        out_dir = os.path.join(workdir, f"masks3d_{run}")
+        summaries[run] = predict3d.run(["--checkpoint", os.path.dirname(ckpt), "--device", VOL_DEVICE,
+                                        "--features", *map(str, VOL_FEATURES), "--window", *map(str, VOL_CROP),
+                                        "--images_dir", serve, "--output_dir", out_dir])
+        check(summaries[run]["volumes"] == len(VOL_PREDICT) and summaries[run]["windows"] == sum(n_win),
+              f"predict3d {run}: {summaries[run]}")
+        files = sorted(os.listdir(out_dir))
+        check(files == [f"scan_{i}_mask.nii.gz" for i in range(len(VOL_PREDICT))], f"predict3d {run}: wrote {files}")
+    masks = [np.asarray(read_nifti(os.path.join(workdir, "masks3d_warm", f"scan_{i}_mask.nii.gz")).data)
+             for i in range(len(VOL_PREDICT))]
+    for mask, shape in zip(masks, VOL_PREDICT):  # the file's own (X, Y, Z), not the network's (Z, X, Y)
+        check(mask.shape == shape and mask.dtype == np.uint8 and set(np.unique(mask)) <= {0, 1},
+              f"mask {mask.shape} {mask.dtype} for a volume of {shape}")
+
+    # the ragged volume's mask against the task's own prediction on the (Z, X, Y) volume
+    args = predict3d.parse_args(["--images_dir", serve, "--output_dir", workdir])
+    task = Segmentation3DTask(features=VOL_FEATURES, device=VOL_DEVICE)
+    task.model.load_state_dict(torch.load(ckpt, map_location=VOL_DEVICE, weights_only=True)["model"])
+    x = torch.from_numpy(minmax_unit(read_volume(os.path.join(serve, "scan_2.nii.gz")))[..., None]).to(VOL_DEVICE)
+    sx, sy, sz = VOL_PREDICT[2]
+    check(tuple(x.shape[:3]) == (sz, sx, sy), f"the (Z, X, Y) volume is {tuple(x.shape)}")
+    logits = sliding_window_predict_3d(task.logits, (x - args.mean) / args.std, window=VOL_CROP)
+    want = np.moveaxis((torch.sigmoid(logits[..., 0]) > 0.5).cpu().numpy().astype(np.uint8), 0, -1)
+    agreement = float((masks[2] == want).mean())
+    check(agreement >= 0.999, f"the written mask agrees with the task's prediction on {agreement:.5f} of voxels")
+
+    # one window of the sliding path is the plain f32 eval forward
+    task32 = Segmentation3DTask(features=VOL_FEATURES, device=VOL_DEVICE, dtype=torch.float32)
+    task32.model.load_state_dict(task.model.state_dict())
+    one = ((x - args.mean) / args.std)[:VOL_CROP[0], :VOL_CROP[1], :VOL_CROP[2]].contiguous()
+    got = sliding_window_predict_3d(task32.logits, one, window=VOL_CROP, batch_windows=1)
+    ref = task32.logits(one[None])[0]
+    one_window_rel = float((got - ref).abs().max() / ref.abs().max())
+    check(got.shape == ref.shape and one_window_rel <= 1e-5,
+          f"one-window sliding logits differ from the forward by {one_window_rel} rel")
+
+    warm = summaries["warm"]["seconds_per_volume"]
+    phase("predict3d", volumes=len(VOL_PREDICT), windows_per_volume=n_win[0], mvox_per_volume=masks[0].size / 1e6,
+          mvox_per_s_cold=summaries["cold"]["value"], mvox_per_s_warm=summaries["warm"]["value"],
+          first_volume_s_cold=round(summaries["cold"]["seconds_per_volume"][0], 3),
+          s_per_volume_warm=[round(t, 3) for t in warm], mask_agreement=agreement,
+          mask_on_share=float(np.mean([m.mean() for m in masks])), one_window_rel=one_window_rel, card=repr(card))
+
+
+def device_breakdown(torch, fn, steps: int = 3) -> dict:
+    """Kernels a call of ``fn`` and their device time by kind, from
+    ``torch.profiler`` over ``steps`` calls: the busy milliseconds a call and
+    the share of convolutions and matrix products, of reductions, of
+    elementwise and copy kernels, and of the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kinds = (("conv", ("conv", "gemm", "cudnn", "cutlass", "xmma", "wgrad", "dgrad", "nchwtonhwc", "nhwctonchw")),
+             ("reduce", ("reduce", "welford", "var_mean")),
+             ("elementwise", ("elementwise", "vectorized", "copy", "cat", "index", "gather", "fill")))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    total, count, by_kind = 0.0, 0, {k: 0.0 for k, _ in kinds}
+    by_kind["other"] = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if not us:
+            continue
+        name = e.key.lower()
+        kind = next((k for k, words in kinds if any(w in name for w in words)), "other")
+        by_kind[kind] += us
+        total += us
+        count += e.count
+    if not total:
+        return {"kernels": 0}
+    return {"kernels": count // steps, "busy_ms": total / steps / 1000.0,
+            **{f"{k}_share": round(v / total, 3) for k, v in by_kind.items()}}
+
+
+def run_seg3d_step(torch, card: str) -> None:
+    """Device-resident 3D augmentation + step at full width: CUDA-event
+    times at batch 4 and 32, FLOPs, peaks with and without remat, the
+    volumetric BYOL step, and the memory guard's report."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from medical_image_segmentation_tpu_torch.core import hbm
+    from medical_image_segmentation_tpu_torch.ops.augment3d import byol_two_view_augment_3d, segmentation_augment_3d
+    from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+
+    rng = np.random.default_rng(9)
+    base_vols, base_masks = spheres_batch(torch, rng, VOL_STEP_BATCHES[0], VOL_SIZE)
+    gen = torch.Generator(device=VOL_DEVICE).manual_seed(3)
+
+    def make(remat: bool):
+        task = Segmentation3DTask(features=VOL_FEATURES, device=VOL_DEVICE, warmup_epochs=0, max_epochs=100,
+                                  steps_per_epoch=10, remat=remat)
+        task.init(0)
+        return task
+
+    fields = {}
+    for batch in VOL_STEP_BATCHES:
+        reps = batch // VOL_STEP_BATCHES[0]
+        vols, masks = base_vols.repeat(reps, 1, 1, 1, 1), base_masks.repeat(reps, 1, 1, 1, 1)
+
+        def augment():
+            return segmentation_augment_3d(gen, vols, masks, out_size=VOL_CROP, train=True)
+
+        x, y = augment()
+        peaks, losses = {}, {}
+        for remat in (False, True):  # a fresh task's first step, from the same weights and batch
+            task = make(remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses[remat] = float(task.train_step(x, y)["train/loss"])
+            peaks[remat] = torch.cuda.max_memory_allocated()
+            del task
+            torch.cuda.empty_cache()
+        loss_rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        check(loss_rel <= 1e-6, f"seg3d batch {batch}: remat changed the forward: loss rel {loss_rel}")
+        check(peaks[True] < peaks[False], f"seg3d batch {batch}: remat peak {peaks[True]} not under {peaks[False]}")
+
+        task = make(False)
+        with FlopCounterMode(display=False) as flops:
+            task.train_step(x, y)
+        step_tflop = flops.get_total_flops() / 1e12
+        n = 20 if batch == VOL_STEP_BATCHES[0] else 5
+        ms = {"aug_step": event_ms(torch, lambda: task.train_step(*augment()), n),
+              "step": event_ms(torch, lambda: task.train_step(x, y), n),
+              "aug": event_ms(torch, augment, n),
+              "fwd": event_ms(torch, lambda: task.logits(x), n)}
+        t0 = time.perf_counter()
+        for _ in range(n):
+            task.train_step(x, y)
+        host_ms = 1000.0 * (time.perf_counter() - t0) / n   # the host's time to queue a step, no sync inside
+        torch.cuda.synchronize()
+        check(math.isfinite(float(task.train_step(x, y)["train/loss"])), "non-finite loss in the timed 3D steps")
+        fields.update({f"b{batch}_ms_{k}": v for k, v in ms.items()})
+        fields.update({f"b{batch}_host_queue_ms_step": host_ms, f"b{batch}_vol_per_s": batch * 1000.0 / ms["aug_step"],
+                       f"b{batch}_step_tflop": step_tflop, f"b{batch}_tflop_per_s": step_tflop / ms["step"] * 1000.0,
+                       f"b{batch}_peak_gib_plain": peaks[False] / 2**30, f"b{batch}_peak_gib_remat": peaks[True] / 2**30,
+                       f"b{batch}_remat_loss_rel": loss_rel})
+        fields.update({f"b{batch}_step_{k}": v for k, v in device_breakdown(torch, lambda: task.train_step(x, y)).items()})
+        if batch == VOL_STEP_BATCHES[0]:  # the guard on this configuration; the state bit-equal across its probe
+            before, gen_before = cpu_tree(task.state_dict()), gen.get_state()
+
+            def probe():
+                with hbm.preserved(task, gen):
+                    task.train_step(*augment())
+
+            mem = hbm.guard_step(probe, label=f"seg3d train step (batch {batch})", device=VOL_DEVICE)
+            equal = trees_equal(cpu_tree(task.state_dict()), before) and torch.equal(gen.get_state(), gen_before)
+            check(mem is not None and not mem["oversubscribed"] and equal, f"seg3d guard: {mem}, state equal {equal}")
+            fields.update(guard_peak_gib=mem["projected_peak"] / 2**30, guard_state_bit_equal=equal)
+        del task, vols, masks, x, y
+        torch.cuda.empty_cache()
+
+    byol = BYOLTask(volumetric=True, features3d=VOL_FEATURES, in_channels=1, hidden_dim=VOL_HIDDEN,
+                    proj_dim=VOL_PROJ, num_classes=2, probe_loss_weight=0.0, warmup_epochs=0, device=VOL_DEVICE)
+    byol.init(0)
+
+    def views():
+        return byol_two_view_augment_3d(gen, base_vols, out_size=VOL_CROP)
+
+    torch.cuda.reset_peak_memory_stats()
+    fields.update(byol_b4_ms_aug_step=event_ms(torch, lambda: byol.train_step(*views()), 20),
+                  byol_b4_ms_aug=event_ms(torch, views, 20), byol_b4_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(math.isfinite(float(byol.train_step(*views())["loss"])), "non-finite loss in the timed volumetric BYOL steps")
+    phase("seg3d_step", features=VOL_FEATURES, crop=VOL_CROP, **fields, card=repr(card))
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1193,8 +1668,23 @@ def main(argv=None) -> int:
             run_profile(torch, fa, workdir, card)
         run_remat(torch, fa, card)
         run_hbm(torch, fa, card)
+        # the volumetric path: no TPU kernel lies on it, so none is launched
+        fa.fused_two_view_augment.launches = 0
+        run_vol_parity(torch)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
+            t0 = time.time()
+            root = write_volumes(workdir)
+            phase("volumes", labelled=sum(VOL_SPLITS.values()), served=len(VOL_PREDICT), seconds=round(time.time() - t0, 2))
+            ssl3d_ckpt = run_ssl3d_train(torch, root, workdir, card)
+            seg3d_ckpt = run_seg3d_train(torch, root, workdir, ssl3d_ckpt, card)
+            run_resume3d(torch, root, workdir, card)
+            run_predict3d(torch, root, workdir, seg3d_ckpt, card)
+        run_seg3d_step(torch, card)
+        vol_launches = fa.fused_two_view_augment.launches
+        check(vol_launches == 0, f"the volumetric path launched two_view_augment {vol_launches} times")
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
-                                     "replaces": REPLACES, "launches": launches, **kernel_record}])
+                                     "replaces": REPLACES, "launches": launches,
+                                     "launches_volumetric_path": vol_launches, **kernel_record}])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,6 +1,6 @@
 """torch checkpoints and the SSL→segmentation encoder handoff.
 
-Port of ``core/checkpoint.py:49-98, 139-170``. A checkpoint is one
+Port of ``core/checkpoint.py:49-170``. A checkpoint is one
 ``torch.save`` file ``<dir>/<step>.pt`` (the convention of
 ``train/train_ssl.py``), written to a temporary name and renamed, so a
 run killed mid-save leaves the last complete one. A trainer's checkpoint
@@ -15,6 +15,8 @@ existed still load; the encoder graft reads only ``online``.
 BYOL checkpoint (weights and BatchNorm running statistics; never the
 momentum target) into a U-Net's ``encoder``, adapting the stem to the
 U-Net's input channels. Any other shape mismatch raises.
+``load_byol3d_encoder_into_unet3d`` does the same for a volumetric BYOL
+backbone and a ``UNet3D``, whose encoder blocks carry the same names.
 """
 
 from __future__ import annotations
@@ -141,4 +143,32 @@ def load_byol_encoder_into_unet(unet_state: Mapping[str, torch.Tensor], online: 
     new_state = dict(unet_state)
     for k, v in backbone.items():
         new_state["encoder." + k] = v.detach().clone()
+    return new_state
+
+
+def load_byol3d_encoder_into_unet3d(unet_state: Mapping[str, torch.Tensor],
+                                    online: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A copy of ``unet_state`` (a ``UNet3D`` state dict) whose ``enc{i}``
+    and ``down{i}`` entries are the ``UNet3DEncoder`` backbone of ``online``
+    (the ``"online"`` entry of a volumetric BYOL checkpoint); the decoder
+    and the head stay. Raises on a checkpoint without such a backbone, on a
+    block the U-Net lacks (a deeper encoder) and, listing them, on entries
+    whose shapes differ or that the U-Net's block does not hold (another
+    width or norm)."""
+    backbone = extract_byol_backbone(online)
+    if not any(k.startswith("enc0.") for k in backbone):
+        raise ValueError("the checkpoint's online network holds no volumetric (UNet3DEncoder) backbone")
+    missing = sorted({k.split(".")[0] for k in backbone} - {k.split(".")[0] for k in unet_state})
+    if missing:
+        raise ValueError(f"UNet3D has no blocks {missing} to graft into")
+    mismatches = []
+    for k, v in backbone.items():
+        target = unet_state.get(k)
+        if target is None or target.shape != v.shape:
+            mismatches.append((k, tuple(v.shape), None if target is None else tuple(target.shape)))
+    if mismatches:
+        raise ValueError(f"3D encoder shape mismatches: {mismatches}")
+    new_state = dict(unet_state)
+    for k, v in backbone.items():
+        new_state[k] = v.detach().clone()
     return new_state

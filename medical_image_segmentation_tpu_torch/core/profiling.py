@@ -51,9 +51,10 @@ def _stop_trace(prof: "torch.profiler.profile", device, trace_dir: str) -> str:
 
 
 @contextlib.contextmanager
-def trace_if(log_dir: str, enabled: bool = True, device="cpu"):
+def trace_if(log_dir: str, enabled: bool = True, *, device):
     """Trace the block into ``<log_dir>/trace.json`` when ``enabled``; the
-    file is written however the block ends."""
+    file is written however the block ends. ``device`` has no default: a
+    caller that left it out would trace the host only and say nothing."""
     if not enabled:
         yield
         return
@@ -70,7 +71,7 @@ class StepProfiler:
     ``stop()`` for a run shorter than ``n_steps``, one stopped by a signal,
     or one that raised. ``n_steps = 0`` traces nothing."""
 
-    def __init__(self, n_steps: int, log_dir: str, device="cpu"):
+    def __init__(self, n_steps: int, log_dir: str, device):
         self.left = n_steps
         self.device = device
         self.trace_dir = os.path.join(log_dir, "trace")

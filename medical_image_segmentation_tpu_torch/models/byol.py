@@ -5,24 +5,32 @@ encoder + predictor MLP + a linear probe fed with detached backbone
 features, so the probe never trains the backbone. The momentum ("target")
 encoder is a second ``Encoder`` that ``train/byol_task.py`` EMA-updates.
 ``remat`` checkpoints the backbone's residual blocks (``models/byol.py:47-61,81-93``).
+``volumetric`` swaps the ResNet for a ``UNet3DEncoder`` of ``features3d``
+with its default GroupNorm (inputs become NDHWC volumes); projector,
+predictor and probe do not change.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from medical_image_segmentation_tpu_torch.models.mlp import MLP, reset_linear
 from medical_image_segmentation_tpu_torch.models.resnet import ResNet
+from medical_image_segmentation_tpu_torch.models.unet3d import UNet3DEncoder
 
 
 class Encoder(nn.Module):
     def __init__(self, arch: str = "resnet18", in_channels: int = 3, low_res: bool = False,
-                 hidden_dim: int = 4096, proj_dim: int = 256, remat: bool = False):
+                 hidden_dim: int = 4096, proj_dim: int = 256, remat: bool = False, volumetric: bool = False,
+                 features3d: Sequence[int] = (32, 64, 128, 256)):
         super().__init__()
-        self.backbone = ResNet(arch, in_channels, low_res, remat)
+        if volumetric:
+            self.backbone = UNet3DEncoder(in_channels, features3d, remat=remat)
+        else:
+            self.backbone = ResNet(arch, in_channels, low_res, remat)
         self.projector = MLP(self.backbone.feature_dim, hidden_dim, proj_dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -41,9 +49,10 @@ class BYOLNet(nn.Module):
     """Online side of BYOL: encoder + predictor + (detached) linear probe."""
 
     def __init__(self, arch: str = "resnet18", in_channels: int = 3, low_res: bool = False,
-                 hidden_dim: int = 4096, proj_dim: int = 256, num_classes: int = 10, remat: bool = False):
+                 hidden_dim: int = 4096, proj_dim: int = 256, num_classes: int = 10, remat: bool = False,
+                 volumetric: bool = False, features3d: Sequence[int] = (32, 64, 128, 256)):
         super().__init__()
-        self.encoder = Encoder(arch, in_channels, low_res, hidden_dim, proj_dim, remat)
+        self.encoder = Encoder(arch, in_channels, low_res, hidden_dim, proj_dim, remat, volumetric, features3d)
         self.predictor = MLP(proj_dim, hidden_dim, proj_dim)
         self.probe = nn.Linear(self.encoder.backbone.feature_dim, num_classes)
 

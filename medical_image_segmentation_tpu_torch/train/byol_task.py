@@ -17,12 +17,14 @@
 the linear probe. ``state_dict``/``load_state_dict`` carry the online and
 target networks, the optimizer and the step, which is what a resume
 restores (the trainer adds the data order and the augmentation stream).
-``remat`` checkpoints each residual block of both towers.
+``remat`` checkpoints each residual block of both towers. ``volumetric``
+trains a ``UNet3DEncoder`` of ``features3d`` on NDHWC views
+(``train/byol_task.py:78-89``); nothing else of the task changes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +57,8 @@ class BYOLTask:
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
         remat: bool = False,
+        volumetric: bool = False,
+        features3d: Sequence[int] = (32, 64, 128, 256),
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -62,11 +66,12 @@ class BYOLTask:
                                "available (pass device='cpu' explicitly)")
         self.dtype = dtype
         self._net_kw = dict(arch=arch, in_channels=in_channels, low_res=low_res,
-                            hidden_dim=hidden_dim, proj_dim=proj_dim, remat=remat)
+                            hidden_dim=hidden_dim, proj_dim=proj_dim, remat=remat, volumetric=volumetric,
+                            features3d=tuple(features3d))
         self.online = BYOLNet(num_classes=num_classes, **self._net_kw)
         self.target = Encoder(**self._net_kw)
         for m in (self.online, self.target):
-            m.to(self.device, memory_format=torch.channels_last)
+            m.to(self.device, memory_format=torch.channels_last_3d if volumetric else torch.channels_last)
         self.target.requires_grad_(False)
         self.total_steps = total_steps
         self.probe_loss_weight = probe_loss_weight

@@ -1,0 +1,122 @@
+"""Volumetric mask inference CLI (``mis-predict3d-torch``).
+
+Port of ``train/predict3d.py:30-185``: loads a checkpoint of
+``mis-train-segmentation3d-torch`` and writes a binary mask for every NIfTI
+volume of a directory, at its native size, through overlapped
+sliding-window blending (``eval/sliding_window.py::sliding_window_predict_3d``,
+one loop path for every window count).
+
+  mis-predict3d-torch --checkpoint ckpt/seg3d --features 32 64 128 256 \\
+      --images_dir volumes/ --output_dir masks/ --window 32 64 64
+
+Each volume is min-max scaled to 0..1, turned from the file's (X, Y, Z) to
+(D=Z, H=X, W=Y), windowed (``--hu_windows``) and normalized; the mask is
+sigmoid > ``--threshold``, written as uint8 0/1 ``<stem>_mask.nii.gz`` back
+in (X, Y, Z), so it overlays its input in any viewer. The last line of
+standard output is a JSON throughput summary (megavoxels a second through
+read → predict → write). ``--exported`` (the AOT window artifact) is not
+ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from medical_image_segmentation_tpu_torch.core.checkpoint import resolve_checkpoint_path
+from medical_image_segmentation_tpu_torch.data.nifti import write_nifti
+from medical_image_segmentation_tpu_torch.data.volumes import minmax_unit, nifti_names, read_volume
+from medical_image_segmentation_tpu_torch.eval.sliding_window import count_windows_3d, sliding_window_predict_3d
+from medical_image_segmentation_tpu_torch.ops.augment import apply_hu_windows, parse_hu_windows
+from medical_image_segmentation_tpu_torch.ops.dice import post_process_masks
+from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description="Volumetric 3D U-Net mask inference (PyTorch/CUDA port)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="seg3d checkpoint directory (latest step) or a specific <step>.pt")
+    ap.add_argument("--exported", default=None, help="not ported yet")
+    ap.add_argument("--features", type=int, nargs="+", default=(32, 64, 128, 256))
+    ap.add_argument("--norm", default="group", choices=["group", "batch"])
+    ap.add_argument("--window", type=int, nargs=3, default=(32, 64, 64), metavar=("D", "H", "W"),
+                    help="sliding-window shape (matches the training crop)")
+    ap.add_argument("--mean", type=float, default=0.2089, help="normalization mean (0-1 scale)")
+    ap.add_argument("--std", type=float, default=0.2109)
+    ap.add_argument("--images_dir", required=True, help="directory of .nii/.nii.gz volumes")
+    ap.add_argument("--output_dir", required=True, help="masks written here as 0/1 uint8 NIfTI")
+    ap.add_argument("--threshold", type=float, default=0.5, help="sigmoid cut for the binary mask")
+    ap.add_argument("--hu_windows", default=None, metavar="L:W,L:W,…",
+                    help="fixed display windows (0-1 scale) stacked as input channels — must match the "
+                         "--hu_windows the checkpoint trained with")
+    ap.add_argument("--batch_windows", type=int, default=4)
+    ap.add_argument("--device", default="cuda", help="torch device; cuda raises if absent")
+    ap.add_argument("--bf16", action="store_true", default=True)
+    ap.add_argument("--fp32", dest="bf16", action="store_false")
+    return ap.parse_args(argv)
+
+
+def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    """Serve every volume; returns the JSON summary it prints."""
+    args = parse_args(argv)
+    if (args.checkpoint is None) == (args.exported is None):
+        raise SystemExit("exactly one of --checkpoint / --exported is required")
+    if args.exported is not None:
+        raise SystemExit("--exported: the AOT window artifact is not ported to the PyTorch package yet "
+                         "(ROADMAP.md item 19); run medical_image_segmentation_tpu for it")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+
+    hu_windows = parse_hu_windows(args.hu_windows, value_max=1.0) if args.hu_windows else ()
+    task = Segmentation3DTask(in_channels=len(hu_windows) or 1, features=tuple(args.features), norm=args.norm,
+                              dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device)
+    ckpt = resolve_checkpoint_path(args.checkpoint)
+    state = torch.load(ckpt, map_location=device, weights_only=True)
+    task.model.load_state_dict(state["model"])
+    print(f"restored {ckpt} (step {state['step']})", file=sys.stderr)
+
+    names = nifti_names(args.images_dir)
+    if not names:
+        raise SystemExit(f"no NIfTI volumes under {args.images_dir}")
+    os.makedirs(args.output_dir, exist_ok=True)
+    window = tuple(args.window)
+
+    t0 = time.time()
+    n_vox, n_win, per_volume = 0, 0, []
+    for name in names:
+        t_vol = time.time()
+        x = torch.from_numpy(minmax_unit(read_volume(os.path.join(args.images_dir, name)))[..., None]).to(device)
+        x = (apply_hu_windows(x, hu_windows) - args.mean) / args.std
+        logits = sliding_window_predict_3d(task.logits, x, window=window, batch_windows=args.batch_windows)
+        mask = post_process_masks(logits, threshold=args.threshold)[..., 0].to(torch.uint8).cpu().numpy()
+        mask = np.moveaxis(mask, 0, -1)  # back to (X, Y, Z)
+        out = os.path.join(args.output_dir, f"{name.split('.nii')[0]}_mask.nii.gz")
+        write_nifti(out, mask)
+        n_vox += mask.size
+        n_win += count_windows_3d(x.shape[:3], window)
+        per_volume.append(time.time() - t_vol)
+        print(f"{name}: {mask.shape} mask → {out} ({float(mask.mean()):.4f} foreground)", file=sys.stderr)
+    dt = time.time() - t0
+    summary = {"metric": "predict3d_megavoxels_per_sec", "value": round(n_vox / dt / 1e6, 3), "unit": "Mvox/s",
+               "volumes": len(names), "window": list(window), "windows": n_win, "seconds": dt,
+               "seconds_per_volume": per_volume}
+    print(json.dumps(summary))
+    return summary
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,43 @@
+"""Volumetric segmentation task (3D U-Net + Dice). Port of
+``train/seg3d_task.py:43-135``.
+
+The 2D task with another network: ``UNet3D`` of ``features`` and ``norm``
+on NDHWC crops, in ``channels_last_3d``. Loss, metrics, LARS, the
+warmup-cosine LR held for a whole epoch and ending at ``min_lr``, bf16
+through autocast, ``remat`` per double-conv block and the state dict are
+``train/segmentation_task.py``'s, which are shape-agnostic. With the
+default GroupNorm the state dict holds no running statistics.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from medical_image_segmentation_tpu_torch.models.unet3d import UNet3D
+from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
+
+
+class Segmentation3DTask(SegmentationTask):
+    def __init__(
+        self,
+        n_classes: int = 1,
+        in_channels: int = 1,
+        features: Sequence[int] = (32, 64, 128, 256),
+        norm: str = "group",
+        learning_rate: float = 1.0,
+        weight_decay: float = 1e-6,
+        momentum: float = 0.9,
+        warmup_epochs: int = 10,
+        max_epochs: int = 50,
+        min_lr: float = 1e-2,
+        steps_per_epoch: int = 1,
+        loss: str = "dice",
+        dtype: torch.dtype = torch.bfloat16,
+        device="cuda",
+        remat: bool = False,
+    ):
+        net_kw = dict(n_classes=n_classes, in_channels=in_channels, features=tuple(features), norm=norm, remat=remat)
+        self._build(UNet3D, net_kw, torch.channels_last_3d, learning_rate, weight_decay, momentum, warmup_epochs,
+                    max_epochs, min_lr, steps_per_epoch, loss, dtype, device)

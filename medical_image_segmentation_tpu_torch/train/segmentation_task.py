@@ -46,6 +46,13 @@ class SegmentationTask:
         device="cuda",
         remat: bool = False,
     ):
+        self._build(UNet, dict(arch=arch, n_classes=n_classes, in_channels=in_channels, remat=remat),
+                    torch.channels_last, learning_rate, weight_decay, momentum, warmup_epochs, max_epochs, min_lr,
+                    steps_per_epoch, loss, dtype, device)
+
+    def _build(self, net_cls, net_kw, memory_format, learning_rate, weight_decay, momentum, warmup_epochs,
+               max_epochs, min_lr, steps_per_epoch, loss, dtype, device) -> None:
+        """Everything but the choice of network, which ``train/seg3d_task.py`` makes differently."""
         if loss not in ("dice", "dice_ce"):
             raise ValueError(f"loss must be 'dice' or 'dice_ce', got {loss!r}")
         self.device = torch.device(device)
@@ -54,8 +61,8 @@ class SegmentationTask:
                                "available (pass device='cpu' explicitly)")
         self.dtype = dtype
         self._loss = dice_ce if loss == "dice_ce" else dice_loss
-        self._net_kw = dict(arch=arch, n_classes=n_classes, in_channels=in_channels, remat=remat)
-        self.model = UNet(**self._net_kw).to(self.device, memory_format=torch.channels_last)
+        self._net_cls, self._net_kw = net_cls, net_kw
+        self.model = net_cls(**net_kw).to(self.device, memory_format=memory_format)
         self.schedule = linear_warmup_cosine_annealing(
             learning_rate, warmup_epochs, max_epochs, eta_min=min_lr, steps_per_epoch=steps_per_epoch)
         self.optimizer = LARS(self.model.parameters(), lr=0.0, weight_decay=weight_decay, momentum=momentum)
@@ -63,7 +70,7 @@ class SegmentationTask:
 
     def init(self, seed: int) -> None:
         """Fresh weights from ``seed``; optimizer state and step count reset."""
-        fresh = UNet(**self._net_kw)
+        fresh = self._net_cls(**self._net_kw)
         fresh.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.load_state_dict(fresh.state_dict())
         self.optimizer.state.clear()
@@ -73,7 +80,7 @@ class SegmentationTask:
         return torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.dtype == torch.bfloat16)
 
     def train_step(self, images: torch.Tensor, masks: torch.Tensor) -> Dict[str, object]:
-        """One step on an NHWC batch. ``train/loss`` is a 0-d device tensor
+        """One step on a channels-last batch. ``train/loss`` is a 0-d device tensor
         (no sync), ``lr`` a float."""
         self.model.train()
         with self._autocast():
@@ -89,7 +96,7 @@ class SegmentationTask:
 
     @torch.no_grad()
     def logits(self, images: torch.Tensor) -> torch.Tensor:
-        """Eval-mode (running-statistics) f32 NHWC logits."""
+        """Eval-mode (running-statistics) f32 channels-last logits."""
         self.model.eval()
         try:
             with self._autocast():

@@ -1,0 +1,323 @@
+"""Volumetric (3D U-Net) segmentation training entry point
+(``mis-train-segmentation3d-torch``): fit → val → test → final checkpoint.
+
+Port of ``train/train_segmentation3d.py:36-437``: the same flags and
+defaults, plus an explicit ``--device`` (default ``cuda``, which raises
+without a card). Per step: ``data/volumes.py`` reads and centre-fits
+Medical Decathlon NIfTI volumes on the host to ``--volume_size`` →
+``data/device_feed.py`` copies the batch to the device one ahead →
+``ops/augment3d.py`` crops, flips and jitters it there to ``--crop_size``
+→ one ``Segmentation3DTask.train_step``.
+
+- ``--device_cache`` puts every split's fitted volumes (f32) and masks
+  (uint8) on the device once and gathers the batches there by index: the
+  same batches, bit for bit, with only the indices crossing. The corpora
+  are built before the memory guard's probe step, whose peak is the whole
+  process's, so the guard counts them.
+- ``--cache_volumes`` keeps the fitted volumes in host memory instead.
+- ``--ssl_checkpoint`` grafts the online backbone of a volumetric BYOL
+  ``.pt`` (``mis-train-ssl3d-torch``) into the encoder before training.
+- val runs every ``--eval_every_epochs`` epochs and on the last; 0 means no
+  val pass at all. Test always runs at the end. Metrics are the mean over
+  batches of each batch's Dice, IoU and loss, on the centre crop.
+- ``--full_res_window D H W`` then scores the test volumes (the train
+  volumes when there is no test split) at their native size through
+  sliding-window blending.
+- ``--resume``, SIGTERM/SIGINT, the checkpoint cadence, ``--remat`` and
+  the memory guard work as in ``train/train_segmentation.py``; a batch
+  larger than the train split is refused, since every epoch would run no
+  step.
+
+Only ``--space_shards > 1`` (depth sharded over several cards) is not
+ported; it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import sys
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from medical_image_segmentation_tpu_torch.core.checkpoint import (
+    load_byol3d_encoder_into_unet3d, load_checkpoint, resume_latest, save_checkpoint, trainer_state,
+)
+from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved
+from medical_image_segmentation_tpu_torch.core.metrics_logger import CSVMetricsLogger
+from medical_image_segmentation_tpu_torch.data.device_feed import build_corpus, volume_batches
+from medical_image_segmentation_tpu_torch.data.volumes import DecathlonVolumeDataset, VolumeLoader
+from medical_image_segmentation_tpu_torch.eval.sliding_window import sliding_window_predict_3d
+from medical_image_segmentation_tpu_torch.ops.augment import apply_hu_windows, parse_hu_windows
+from medical_image_segmentation_tpu_torch.ops.augment3d import segmentation_augment_3d
+from medical_image_segmentation_tpu_torch.ops.dice import dice_coefficient, jaccard_index, post_process_masks
+from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
+from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+from medical_image_segmentation_tpu_torch.train.train_ssl import refuse_unported, resolve_device
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description="3D U-Net volumetric segmentation (PyTorch/CUDA port)")
+    ap.add_argument("--images_dir", required=True)
+    ap.add_argument("--masks_dir", required=True)
+    ap.add_argument("--split_file", default=None)
+    ap.add_argument("--volume_size", type=int, nargs=3, default=(64, 96, 96), metavar=("D", "H", "W"),
+                    help="host-side pad/crop shape of every volume")
+    ap.add_argument("--crop_size", type=int, nargs=3, default=(32, 64, 64), metavar=("D", "H", "W"),
+                    help="device-side random train crop (centre crop at eval)")
+    ap.add_argument("--batch_size", type=int, default=4)
+    ap.add_argument("--max_epochs", type=int, default=50)
+    ap.add_argument("--learning_rate", type=float, default=1.0)
+    ap.add_argument("--min_lr", type=float, default=1e-2)
+    ap.add_argument("--warmup_epochs", type=int, default=10)
+    ap.add_argument("--weight_decay", type=float, default=1e-6)
+    ap.add_argument("--features", type=int, nargs="+", default=(32, 64, 128, 256))
+    ap.add_argument("--norm", default="group", choices=["group", "batch"])
+    ap.add_argument("--mean", type=float, default=0.2089, help="dataset mean on the 0-1 scale")
+    ap.add_argument("--std", type=float, default=0.2109)
+    ap.add_argument("--loss", default="dice", choices=["dice", "dice_ce"])
+    ap.add_argument("--hu_windows", default=None, metavar="L:W,L:W,…",
+                    help="fixed display windows (level:width on the 0-1 intensity scale) stacked as input "
+                         "channels; applied at train, eval and sliding-window eval")
+    ap.add_argument("--space_shards", type=int, default=1, metavar="N", help="only 1 in the port so far")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="torch device; cuda raises if absent")
+    ap.add_argument("--log_dir", default="logs")
+    ap.add_argument("--checkpoint_dir", default="checkpoints/seg3d")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --checkpoint_dir: weights, optimizer, step, "
+                         "data order and augmentation stream")
+    ap.add_argument("--checkpoint_every_epochs", type=int, default=1,
+                    help="periodic checkpoint cadence (0 = final checkpoint only)")
+    ap.add_argument("--ssl_checkpoint", default=None,
+                    help="volumetric BYOL .pt of mis-train-ssl3d-torch (or its directory: latest step) to "
+                         "initialize the encoder from")
+    ap.add_argument("--full_res_window", type=int, nargs=3, default=None, metavar=("D", "H", "W"),
+                    help="after training, evaluate the test volumes at native resolution through overlapped "
+                         "sliding-window blending (eval/sliding_window.py)")
+    ap.add_argument("--eval_every_epochs", type=int, default=1,
+                    help="run the val split every N epochs and on the last one; 0 = no val pass at all "
+                         "(test always runs at the end)")
+    ap.add_argument("--limit_steps_per_epoch", type=int, default=0)
+    ap.add_argument("--bf16", action="store_true", default=True)
+    ap.add_argument("--fp32", dest="bf16", action="store_false")
+    ap.add_argument("--remat", action="store_true", help="checkpoint each double-conv block")
+    ap.add_argument("--cache_volumes", action="store_true",
+                    help="keep the fitted volumes in host memory between epochs (len(ds)·∏volume_size·8 "
+                         "bytes; NIfTI gunzip and parse otherwise repeat every epoch)")
+    ap.add_argument("--device_cache", action="store_true",
+                    help="put each split's volumes and masks on the device once and gather the batches there "
+                         "by index: train and val then move no volume from host to device "
+                         "(len(ds)·∏volume_size·5 bytes of device memory, which the memory guard counts)")
+    ap.add_argument("--skip_hbm_check", action="store_true",
+                    help="skip the pre-flight memory guard (one probe step, core/hbm.py)")
+    ap.add_argument("--force_hbm", action="store_true",
+                    help="run even if the probe step, on top of what already lives on the card, does not fit "
+                         "its memory: the guard then warns instead of refusing")
+    return ap.parse_args(argv)
+
+
+_UNPORTED = (
+    ("space_shards", lambda a: a.space_shards > 1, "depth sharding over several cards (ROADMAP.md item 22)"),
+)
+
+
+@dataclasses.dataclass
+class Seg3DRun:
+    """What a run did: the task at its end, the weights it started from
+    (after the graft; CPU copies), one record per epoch (``steps``,
+    ``seconds``, ``vol_per_s``, ``loss``), every step's loss (0-d device
+    tensors) and ``(step, lr)``, the last val, the test and the full-res
+    metrics, the last checkpoint written, whether a signal stopped it, the
+    step it resumed from and the batches it skipped, the memory guard's
+    report and the bytes of the corpora on the device."""
+
+    task: Segmentation3DTask
+    start_state: Dict[str, torch.Tensor]
+    epochs: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    losses: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    schedule: List[Tuple[int, float]] = dataclasses.field(default_factory=list)
+    val: Optional[Dict[str, float]] = None
+    test: Optional[Dict[str, float]] = None
+    full_res: Optional[Dict[str, float]] = None
+    checkpoint: str = ""
+    stopped: bool = False
+    resumed_from: Optional[int] = None
+    skipped: int = 0
+    hbm: Optional[dict] = None
+    corpus_bytes: int = 0
+
+
+def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
+    args = parse_args(argv)
+    refuse_unported(args, _UNPORTED)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+    volume_size, crop = tuple(args.volume_size), tuple(args.crop_size)
+
+    def dataset(split: str) -> DecathlonVolumeDataset:
+        return DecathlonVolumeDataset(args.images_dir, args.masks_dir, target_shape=volume_size,
+                                      split_file=args.split_file, split=split, cache=args.cache_volumes)
+
+    ds_train = dataset("train")
+    train_loader = VolumeLoader(ds_train, args.batch_size, shuffle=True, seed=args.seed)
+    if len(train_loader) == 0:
+        raise SystemExit(f"--batch_size {args.batch_size} exceeds the train split ({len(ds_train)} volumes): "
+                         "every epoch would run 0 steps. Lower --batch_size to at most the train-set size.")
+    steps_per_epoch = len(train_loader)
+    if args.limit_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, args.limit_steps_per_epoch)
+
+    hu_windows = parse_hu_windows(args.hu_windows, value_max=1.0) if args.hu_windows else ()
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    task = Segmentation3DTask(
+        n_classes=1, in_channels=len(hu_windows) or 1, features=tuple(args.features), norm=args.norm,
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay, warmup_epochs=args.warmup_epochs,
+        max_epochs=args.max_epochs, min_lr=args.min_lr, steps_per_epoch=steps_per_epoch, loss=args.loss,
+        dtype=dtype, device=device, remat=args.remat,
+    )
+    task.init(args.seed)
+    if args.ssl_checkpoint:
+        byol = load_checkpoint(args.ssl_checkpoint)
+        task.model.load_state_dict(load_byol3d_encoder_into_unet3d(task.model.state_dict(), byol["online"]))
+        print(f"initialized 3D encoder from {args.ssl_checkpoint}", file=sys.stderr)
+    out = Seg3DRun(task, {k: v.detach().cpu().clone() for k, v in task.model.state_dict().items()})
+
+    aug_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    start_epoch = 0
+    resumed = resume_latest(args.checkpoint_dir, task, train_loader, aug_gen, steps_per_epoch) if args.resume else None
+    if resumed:
+        out.resumed_from, start_epoch, out.skipped = resumed
+
+    def augment(vols, msks, train: bool):
+        return segmentation_augment_3d(aug_gen if train else None, vols, msks, out_size=crop, mean=(args.mean,),
+                                       std=(args.std,), train=train, dtype=dtype, hu_windows=hu_windows)
+
+    # the eval splits are set up once, before the memory guard, so that its
+    # probe runs on top of every corpus the run will keep on the card
+    def eval_context(split: str):
+        try:
+            ds = dataset(split)
+        except ValueError:
+            return None
+        loader = VolumeLoader(ds, args.batch_size, shuffle=False, drop_last=False)
+        return loader, (build_corpus(ds, device) if args.device_cache else None)
+
+    train_corpus = build_corpus(ds_train, device) if args.device_cache else None
+    eval_ctx = {split: eval_context(split) for split in (("val",) if args.eval_every_epochs else ()) + ("test",)}
+    if args.device_cache:
+        corpora = [train_corpus] + [ctx[1] for ctx in eval_ctx.values() if ctx]
+        out.corpus_bytes = sum(t.numel() * t.element_size() for c in corpora for t in c)
+        print(f"device corpus cache: {len(corpora)} splits, {out.corpus_bytes / 2**30:.2f} GiB resident on the "
+              "device", file=sys.stderr)
+
+    def probe():
+        vols = torch.zeros(args.batch_size, *volume_size, 1, device=device)
+        with preserved(task, aug_gen):
+            task.train_step(*augment(vols, vols, train=True))
+
+    label = f"seg3d train step (batch {args.batch_size})"
+    if out.corpus_bytes:
+        label += f" on top of {out.corpus_bytes / 2**30:.2f} GiB of corpora kept on the device (in the peak)"
+    out.hbm = guard_step(probe, label=label, skip=args.skip_hbm_check, force=args.force_hbm, device=device)
+
+    def run_eval(split: str) -> Optional[Dict[str, float]]:
+        ctx = eval_ctx.get(split)
+        if ctx is None:
+            return None
+        loader, corpus = ctx
+        aggr = {"loss": 0.0, "dice": 0.0, "iou": 0.0}
+        n = 0
+        with contextlib.closing(volume_batches(loader, device, corpus)) as batches:
+            for vols, msks in batches:
+                m = task.eval_step(*augment(vols, msks, train=False))
+                for k in aggr:
+                    aggr[k] += float(m[k])
+                n += 1
+        return {f"{split}/{k}": v / n for k, v in aggr.items()}
+
+    logger = CSVMetricsLogger(args.log_dir)
+
+    def checkpoint(next_epoch: int) -> str:
+        path = save_checkpoint(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step)
+        print(f"checkpoint → {path}", file=sys.stderr)
+        return path
+
+    with PreemptionGuard() as guard:
+        for epoch in range(start_epoch, args.max_epochs):
+            skip = out.skipped if epoch == start_epoch else 0
+            t0 = time.time()
+            metrics, done = {}, skip
+            with contextlib.closing(volume_batches(train_loader, device, train_corpus, skip, steps_per_epoch)) as batches:
+                for vols, msks in batches:
+                    metrics = task.train_step(*augment(vols, msks, train=True))
+                    out.losses.append(metrics["train/loss"])
+                    out.schedule.append((task.step - 1, metrics["lr"]))
+                    done += 1
+                    if guard.stop_requested:
+                        out.checkpoint = checkpoint(epoch if done < steps_per_epoch else epoch + 1)
+                        out.stopped = True
+                        return out
+            if guard.stop_requested:
+                out.checkpoint, out.stopped = checkpoint(epoch + 1), True
+                return out
+            if metrics:
+                loss = float(metrics["train/loss"])  # waits for the epoch's last step
+                dt = time.time() - t0
+                n_vols = (done - skip) * args.batch_size
+                print(f"epoch {epoch}: train/loss={loss:.4f} {n_vols / dt:.1f} vol/s", file=sys.stderr)
+                logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
+                out.epochs.append({"steps": done - skip, "seconds": dt, "vol_per_s": n_vols / dt, "loss": loss})
+            if args.eval_every_epochs and ((epoch + 1) % args.eval_every_epochs == 0 or epoch + 1 == args.max_epochs):
+                out.val = run_eval("val")
+                if out.val:
+                    print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in out.val.items()),
+                          file=sys.stderr)
+                    logger.log(out.val, step=task.step, epoch=epoch)
+            if (args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0
+                    and epoch + 1 < args.max_epochs):  # the final epoch saves below
+                out.checkpoint = checkpoint(epoch + 1)
+
+    out.test = run_eval("test")
+    if out.test:
+        print("test: " + " ".join(f"{k}={v:.4f}" for k, v in out.test.items()), file=sys.stderr)
+        logger.log(out.test, step=task.step, epoch=args.max_epochs)
+    out.checkpoint = checkpoint(args.max_epochs)
+
+    if args.full_res_window:
+        ds_test = eval_ctx["test"][0].ds if eval_ctx["test"] else ds_train  # no test split: the train volumes
+        out.full_res = _full_res_test(task, ds_test, tuple(args.full_res_window), args.mean, args.std, hu_windows,
+                                      device)
+        logger.log(out.full_res, step=task.step, epoch=args.max_epochs)
+    return out
+
+
+def _full_res_test(task, ds, window, mean: float, std: float, hu_windows, device) -> Dict[str, float]:
+    """Mean Dice and IoU of every volume of ``ds`` at its native size,
+    through sliding-window blending of the task's eval-mode logits on the
+    representation it trained on (windows, then normalize)."""
+    dices, ious = [], []
+    for i in range(len(ds)):
+        vol, msk = ds.raw(i)
+        x = (apply_hu_windows(torch.from_numpy(vol).to(device), hu_windows) - mean) / std
+        pred = post_process_masks(sliding_window_predict_3d(task.logits, x, window=window))
+        target = torch.from_numpy(msk).to(device)
+        dices.append(float(dice_coefficient(pred, target)))
+        ious.append(float(jaccard_index(pred, target)))
+    dice, iou = sum(dices) / len(dices), sum(ious) / len(ious)
+    print(f"full-res sliding-window test: dice={dice:.4f} iou={iou:.4f} ({len(dices)} volumes, window {window})",
+          file=sys.stderr)
+    return {"test/full_res_dice": dice, "test/full_res_iou": iou}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -152,10 +152,21 @@ def test_step_profiler_stops_after_its_steps_and_trace_if_writes_on_error(tmp_pa
     assert os.path.exists(tmp_path / "a" / "trace" / "trace.json")
     assert StepProfiler(0, str(tmp_path / "b"), "cpu").path is None
     with pytest.raises(RuntimeError):
-        with trace_if(str(tmp_path / "c"), enabled=True):
+        with trace_if(str(tmp_path / "c"), enabled=True, device="cpu"):
             torch.ones(3).sum()
             raise RuntimeError("a failing block")
     assert os.path.exists(tmp_path / "c" / "trace.json")
+
+
+def test_profilers_take_no_default_device(tmp_path):
+    """A caller that forgot the device would trace the host only and say
+    nothing, so both raise instead."""
+    with pytest.raises(TypeError):
+        StepProfiler(2, str(tmp_path))
+    with pytest.raises(TypeError):
+        with trace_if(str(tmp_path), enabled=True):
+            pass
+    assert not os.listdir(tmp_path)
 
 
 # ------------------------------------------------------------ memory guard
