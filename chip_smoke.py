@@ -49,6 +49,35 @@ exits non-zero and prints no result:
 10. seg_step: steady-state segmentation ms/step on a device-resident batch
    (batch 64, 224², bf16), FLOPs per step and the peak device memory.
 
+The serving path's phases (after ``predict`` and after ``predict3d``). No
+hand-written kernel lies on this path, and the run fails if one is launched
+in it:
+
+- export: ``mis-export-torch`` on phase 8's checkpoint (buckets 1, 8, 64 at
+  224²), then ``mis-predict-torch --exported`` on phase 9's 128 slices: its
+  masks must equal the checkpoint-backed batched masks on every pixel.
+  ``ServingPredictor`` on 1, 9 and 73 images against ``make_predict_fn`` on
+  the same chunks (equal), and a fresh process that loads and calls the
+  artifact must end with no module of ``models/`` or ``train/`` loaded.
+  Prints the artifact's bytes, the export's seconds, and both routes taken
+  in turns (checkpoint, exported, exported, checkpoint): images a second
+  through the CLI, where each ``--exported`` run also loads its buckets,
+  and milliseconds a loaded batch of 64.
+- fused2d: the fused sliding-window predictor (the first slice of a shape
+  eager, then one captured CUDA graph) against the loop on one 512² slice in f32 (1e-5 of the
+  largest logit), then ``mis-predict-torch --sliding_window`` on phase 9's
+  16 slices through the loop, the fused predictor twice, and the loop:
+  equal masks, milliseconds a slice, the kernels a slice of both, the
+  capture's seconds.
+- export3d: ``mis-export3d-torch`` on phase 19's checkpoint (window
+  32×64×64, 4 windows a batch), then ``mis-predict3d-torch --exported`` on
+  phase 21's volumes against its checkpoint-backed masks (≥ 99.9% of
+  voxels; equal is expected).
+- fused3d: fused against loop on one 160×160×80 volume in f32 (1e-5), then
+  ``mis-predict3d-torch`` through loop, fused, fused, loop: seconds a
+  volume and megavoxels a second, and both variants on a device-resident
+  volume by CUDA events.
+
 The SSL path's phases, each at the BYOL width of phase 6:
 
 11. precrop: ``--host_precrop`` on phase 6's store for 8 steps. The
@@ -112,7 +141,8 @@ kernel lies on this path, and the run fails if one is launched in it.
 
 TF32 is off for both cuDNN and cuBLAS, so every f32 op here is full f32;
 the training steps run in bf16 under autocast, which TF32 does not touch.
-The last lines are the card, the kernels' JSON record and
+The device line also says whether ``triton`` imports (information only: the
+port needs none). The last lines are the card, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. The run also fails if the port loaded
 ``jax`` or any module of the JAX package.
 
@@ -128,9 +158,11 @@ line.
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -600,6 +632,7 @@ SEG_SIZE, SEG_BATCH = 224, 64
 SEG_SPLITS = {"train": 512, "val": 128, "test": 128}
 SEG_EPOCHS, SEG_STEPS = 2, 8
 PREDICT_SIZE, PREDICT_SLICES, SLIDING_SLICES = 512, 128, 16  # 16 windows of 224 per 512² slice
+EXPORT_BUCKETS = (1, 8, 64)
 
 
 def run_seg_train(torch, workdir: str, ssl_ckpt: str, card: str) -> str:
@@ -709,6 +742,192 @@ def run_predict(torch, workdir: str, ckpt: str, card: str) -> None:
     phase("predict", batched_slices=PREDICT_SLICES, sliding_slices=SLIDING_SLICES, windows_per_slice=n_win,
           min_pixel_agreement=min(agree), mask_on_share=float(np.mean(on)), one_window_rel=one_window_rel,
           **rates, card=repr(card))
+
+
+def served_masks(out_dir: str):
+    """The masks ``mis-predict-torch`` wrote under ``out_dir``, by name."""
+    from medical_image_segmentation_tpu_torch.utils.png import decode_png
+
+    out = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name), "rb") as f:
+            out[name] = decode_png(f.read())
+    return out
+
+
+def run_export(torch, workdir: str, ckpt: str, card: str) -> None:
+    """``mis-export-torch`` on the trained checkpoint, then the artifact
+    against the checkpoint-backed serving of phase 9."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch import serve
+    from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
+    from medical_image_segmentation_tpu_torch.train import export, predict
+    from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
+
+    art = os.path.join(workdir, "model.misx")
+    t0 = time.time()
+    summary = export.run(["--checkpoint", os.path.dirname(ckpt), "--output", art, "--dataset", SEG_DATASET,
+                          "--image_size", str(SEG_SIZE), "--batch_sizes", ",".join(map(str, EXPORT_BUCKETS)),
+                          "--device", SEG_DEVICE])
+    export_s = time.time() - t0
+    check(summary["batch_sizes"] == sorted(EXPORT_BUCKETS) and summary["platforms"] == [torch.device(SEG_DEVICE).type]
+          and summary["bytes"] == os.path.getsize(art), f"export summary {summary}")
+
+    # served in turns from the checkpoint and from the artifact: equal masks
+    store = os.path.join(workdir, "predict_batched.mis")
+    ckpt_argv = ["--checkpoint", os.path.dirname(ckpt), "--dataset", SEG_DATASET, "--image_size", str(SEG_SIZE),
+                 "--batch_size", str(SEG_BATCH)]
+    rates, loads = [], []
+    for i, route in enumerate(("checkpoint", "exported", "exported", "checkpoint")):
+        out_dir = os.path.join(workdir, f"masks_turn{i}")
+        out = predict.run([*(ckpt_argv if route == "checkpoint" else ["--exported", art]), "--device", SEG_DEVICE,
+                           "--num_workers", "8", "--image_store", store, "--output_dir", out_dir])
+        check(out["images"] == PREDICT_SLICES and out["exported"] == (route == "exported"), f"{route}: {out}")
+        rates.append((route, out["images"] / out["seconds"]))
+        if route == "exported":  # what the run spent deserializing its buckets, and its rate without that
+            check(0.0 < out["load_seconds"] < out["seconds"], f"exported: load_seconds in {out}")
+            loads.append((round(out["load_seconds"], 3), round(out["images"] / (out["seconds"] - out["load_seconds"]), 1)))
+    want = served_masks(os.path.join(workdir, "masks_batched"))
+    differing = 0
+    for i in (1, 2):
+        got = served_masks(os.path.join(workdir, f"masks_turn{i}"))
+        check(sorted(got) == sorted(want), f"--exported wrote {len(got)} masks for {len(want)}")
+        differing += sum(int((got[n] != want[n]).sum()) for n in want)
+    check(differing == 0, f"--exported masks differ from the checkpoint-backed masks on {differing} pixels")
+
+    # the predictor on requests of any size against the function it captured, on the same chunks
+    dm = get_datamodule(SEG_DATASET)()
+    task = SegmentationTask(device=SEG_DEVICE)
+    task.model.load_state_dict(torch.load(ckpt, map_location=SEG_DEVICE, weights_only=True)["model"])
+    fn = serve.make_predict_fn(task, float(dm.mean[0]), float(dm.std[0]))
+    predictor = serve.load_predictor(art, device=SEG_DEVICE)
+    rng = np.random.default_rng(2)
+    whole_batch = []
+    for n, chunks in ((1, [1]), (9, [8, 1]), (73, [64, 8, 1])):
+        imgs = np.stack([img for img, _ in disk_slices(rng, n, SEG_SIZE)])[..., None]
+        got = predictor(imgs)
+        x = torch.from_numpy(imgs).to(SEG_DEVICE)
+        want_n = torch.cat([fn(part) for part in torch.split(x, chunks)]).cpu().numpy()
+        check(got.shape == want_n.shape and got.dtype == np.uint8 and np.array_equal(got, want_n),
+              f"ServingPredictor on {n} images differs from make_predict_fn on chunks {chunks} "
+              f"on {int((got != want_n).sum())} pixels")
+        whole_batch.append(float((got == fn(x).cpu().numpy()).mean()))
+    check(min(whole_batch) >= 0.999, f"artifact against one whole-batch forward: {whole_batch}")
+    # a loaded bucket against the function it captured, per batch of 64 from host memory to host memory
+    imgs = imgs[:SEG_BATCH]
+    batch_ms = [(name, event_ms(torch, call, 10)) for name, call in (
+        ("checkpoint", lambda: fn(torch.from_numpy(imgs).to(SEG_DEVICE)).cpu()), ("exported", lambda: predictor(imgs)),
+        ("exported", lambda: predictor(imgs)), ("checkpoint", lambda: fn(torch.from_numpy(imgs).to(SEG_DEVICE)).cpu()))]
+
+    # where a bucket's load goes: torch.export.load (the graph rebuilt in Python), .module(), the first call
+    _, blobs = serve._read_container(art)
+    load_parts = {}
+    for b in sorted(blobs):
+        t0 = time.time()
+        program = torch.export.load(io.BytesIO(blobs[b]))
+        t1 = time.time()
+        module = program.module()
+        t2 = time.time()
+        with torch.no_grad():
+            module(torch.zeros((b, SEG_SIZE, SEG_SIZE, 1), dtype=torch.uint8, device=SEG_DEVICE))
+        torch.cuda.synchronize()
+        load_parts[b] = {"export_load_s": round(t1 - t0, 3), "module_s": round(t2 - t1, 3),
+                         "first_call_s": round(time.time() - t2, 3), "blob_mb": round(len(blobs[b]) / 1e6, 1)}
+
+    # a serving host: a fresh process loads and calls the artifact without any model code
+    code = ("import json, sys, time, numpy as np\n"
+            "t = [time.time()]\n"
+            "import torch\n"
+            "t.append(time.time())\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            f"from {PKG}.serve import load_predictor\n"
+            "t.append(time.time())\n"
+            f"torch.zeros(1, device={SEG_DEVICE!r})\n"
+            "t.append(time.time())\n"
+            f"predictor = load_predictor({art!r}, device={SEG_DEVICE!r})\n"
+            f"imgs = np.zeros((9, {SEG_SIZE}, {SEG_SIZE}, 1), np.uint8)\n"
+            "masks = predictor(imgs)\n"
+            "t.append(time.time())\n"
+            "predictor(imgs)\n"
+            "t.append(time.time())\n"
+            f"bad = [m for m in sys.modules if m.startswith(('{PKG}.models', '{PKG}.train', 'jax'))]\n"
+            "names = ('import_torch_s', 'import_serve_s', 'device_init_s', 'first_request_s', 'second_request_s')\n"
+            "stages = {n: round(b - a, 3) for n, a, b in zip(names, t, t[1:])}\n"
+            "stages['bucket_load_s'] = round(predictor.load_seconds, 3)\n"
+            "print('STAGES', json.dumps(stages))\n"
+            "print('SERVED', masks.shape, 'MODEL_CODE', bad)\n")
+    t0 = time.time()
+    host = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    check(host.returncode == 0 and f"SERVED (9, {SEG_SIZE}, {SEG_SIZE}, 1) MODEL_CODE []" in host.stdout,
+          f"the serving process: rc {host.returncode}, out {host.stdout[-300:]!r}, err {host.stderr[-600:]!r}")
+    stages = json.loads(next(line for line in host.stdout.splitlines() if line.startswith("STAGES "))[7:])
+    phase("export", buckets=sorted(EXPORT_BUCKETS), artifact_bytes=summary["bytes"], export_s=round(export_s, 2),
+          exported_masks_differing_pixels=differing, predictor_n=[1, 9, 73], whole_batch_agreement=whole_batch,
+          img_per_s_in_turns=[(r, round(v, 1)) for r, v in rates],
+          exported_load_s_and_img_per_s_without_it=loads, bucket_load_parts=load_parts,
+          ms_per_batch_64_in_turns=[(r, round(v, 3)) for r, v in batch_ms], serving_process_s=round(time.time() - t0, 2),
+          serving_process_stages=stages, model_code_loaded_in_serving_process=[], card=repr(card))
+
+
+def run_fused2d(torch, workdir: str, ckpt: str, card: str) -> None:
+    """The fused sliding-window predictor against the loop, alone and
+    through ``mis-predict-torch --sliding_window``."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
+    from medical_image_segmentation_tpu_torch.eval.sliding_window import make_fused_predictor_2d, sliding_window_predict
+    from medical_image_segmentation_tpu_torch.serve import normalize_u8
+    from medical_image_segmentation_tpu_torch.train import predict
+    from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
+
+    dm = get_datamodule(SEG_DATASET)()
+    state = torch.load(ckpt, map_location=SEG_DEVICE, weights_only=True)["model"]
+    img = next(disk_slices(np.random.default_rng(1), 1, PREDICT_SIZE))[0]
+    x = normalize_u8(torch.from_numpy(img[..., None]).to(SEG_DEVICE), dm.mean, dm.std)
+    fields = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        task = SegmentationTask(device=SEG_DEVICE, dtype=dtype)
+        task.model.load_state_dict(state)
+        fused = make_fused_predictor_2d(task.logits, x.shape, SEG_SIZE, device=SEG_DEVICE)
+        eager, got, again = fused(x), fused(x), fused(x)  # the warm-up pass, the capture and a replay, a replay
+        want = sliding_window_predict(task.logits, x, SEG_SIZE)
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(got.shape == want.shape and rel <= 1e-5, f"fused 2D against the loop in {name}: {rel} of the largest logit")
+        check(fused.replays == 2 and torch.equal(again, got) and torch.equal(eager, got),
+              "the eager pass, the first replay and the second replay of the fused predictor disagree")
+        fields[f"{name}_rel"] = rel
+        fields[f"{name}_capture_s"] = round(fused.capture_seconds, 3)
+    # bf16, as served: device time and kernels of one slice, both variants
+    fields.update(loop_device_ms=event_ms(torch, lambda: sliding_window_predict(task.logits, x, SEG_SIZE), 20),
+                  fused_device_ms=event_ms(torch, lambda: fused(x), 20))
+    loop_kernels = device_breakdown(torch, lambda: sliding_window_predict(task.logits, x, SEG_SIZE))
+    fused_kernels = device_breakdown(torch, lambda: fused(x))
+    fields.update(loop_kernels_per_slice=loop_kernels["kernels"], loop_busy_ms=loop_kernels.get("busy_ms"),
+                  fused_kernels_per_slice=fused_kernels["kernels"], fused_busy_ms=fused_kernels.get("busy_ms"),
+                  fused_launches_per_slice="1 graph + 2 copies")
+
+    store = os.path.join(workdir, "predict_sliding.mis")
+    argv = ["--checkpoint", os.path.dirname(ckpt), "--device", SEG_DEVICE, "--dataset", SEG_DATASET,
+            "--image_size", str(SEG_SIZE), "--num_workers", "8", "--image_store", store,
+            "--sliding_window", str(SEG_SIZE)]
+    turns = []
+    for i, use_fused in enumerate((False, True, True, False)):
+        out_dir = os.path.join(workdir, f"masks_sliding_turn{i}")
+        out = predict.run([*argv, "--output_dir", out_dir], fused=use_fused)
+        check(out["images"] == SLIDING_SLICES and out["mode"] == "sliding_window", f"sliding turn {i}: {out}")
+        if use_fused:
+            check(out["fused_shapes"] == 1, f"{SLIDING_SLICES} slices of one shape built {out['fused_shapes']} predictors")
+        turns.append(("fused" if use_fused else "loop", 1000.0 * out["seconds"] / out["images"],
+                      out.get("capture_seconds")))
+    loop_masks = served_masks(os.path.join(workdir, "masks_sliding_turn0"))
+    differing = sum(int((m != loop_masks[n]).sum())
+                    for n, m in served_masks(os.path.join(workdir, "masks_sliding_turn1")).items())
+    check(differing == 0, f"fused sliding-window masks differ from the loop's on {differing} pixels")
+    phase("fused2d", slice=f"{PREDICT_SIZE}x{PREDICT_SIZE}", windows=fused.n_windows, **fields,
+          cli_ms_per_slice_in_turns=[(n, round(ms, 2)) for n, ms, _ in turns],
+          cli_capture_s=[round(c, 3) for _, _, c in turns if c is not None], masks_differing_pixels=differing,
+          card=repr(card))
 
 
 def run_seg_step(torch, card: str) -> None:
@@ -1189,6 +1408,7 @@ VOL_EPOCHS, VOL_STEPS, VOL_RESUME_STOP = 2, 6, 8
 VOL_HIDDEN, VOL_PROJ = 4096, 256
 VOL_PREDICT = [(160, 160, 80), (160, 160, 80), (160, 152, 80), (160, 160, 80)]   # (X, Y, Z) of the volumes to serve
 VOL_PREDICT_WINDOWS = 64                                # windows of VOL_CROP each of them takes
+VOL_SAME_SHAPE = 32                                     # volumes of one shape (resampled scans) served in turns
 VOL_STEP_BATCHES = (4, 32)
 VOL_PARITY = dict(features=(8, 16, 32), crop=(16, 32, 32), batch=2)
 
@@ -1487,6 +1707,115 @@ def run_predict3d(torch, root: str, workdir: str, ckpt: str, card: str) -> None:
           mask_on_share=float(np.mean([m.mean() for m in masks])), one_window_rel=one_window_rel, card=repr(card))
 
 
+def run_export3d(torch, root: str, workdir: str, ckpt: str, card: str) -> str:
+    """``mis-export3d-torch`` on the trained checkpoint, then
+    ``mis-predict3d-torch --exported`` against phase 21's masks; returns the
+    artifact's path."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.nifti import read_nifti
+    from medical_image_segmentation_tpu_torch.train import export3d, predict3d
+
+    art = os.path.join(workdir, "window.misx")
+    t0 = time.time()
+    summary = export3d.run(["--checkpoint", os.path.dirname(ckpt), "--output", art, "--device", VOL_DEVICE,
+                            "--features", *map(str, VOL_FEATURES), "--window", *map(str, VOL_CROP),
+                            "--batch_windows", str(VOL_BATCH)])
+    export_s = time.time() - t0
+    check(summary["window"] == list(VOL_CROP) and summary["batch_windows"] == VOL_BATCH
+          and summary["bytes"] == os.path.getsize(art), f"export3d summary {summary}")
+    out_dir = os.path.join(workdir, "masks3d_exported")
+    served = predict3d.run(["--exported", art, "--device", VOL_DEVICE, "--images_dir", os.path.join(root, "serve"),
+                            "--output_dir", out_dir])
+    check(served["exported"] and served["volumes"] == len(VOL_PREDICT) and served["window"] == list(VOL_CROP)
+          and served["windows"] == VOL_PREDICT_WINDOWS * len(VOL_PREDICT), f"predict3d --exported: {served}")
+    agreement = []
+    for i in range(len(VOL_PREDICT)):
+        got, want = (np.asarray(read_nifti(os.path.join(workdir, d, f"scan_{i}_mask.nii.gz")).data)
+                     for d in ("masks3d_exported", "masks3d_warm"))
+        check(got.shape == want.shape and got.dtype == np.uint8, f"exported mask {got.shape} {got.dtype}")
+        agreement.append(float((got == want).mean()))
+    check(min(agreement) >= 0.999, f"--exported masks agree with the checkpoint-backed masks on {agreement} of voxels")
+    phase("export3d", window=VOL_CROP, batch_windows=VOL_BATCH, artifact_bytes=summary["bytes"],
+          export_s=round(export_s, 2), mask_agreement=agreement, mvox_per_s=served["value"],
+          s_per_volume=[round(t, 3) for t in served["seconds_per_volume"]],
+          capture_s=round(served["capture_seconds"], 3), card=repr(card))
+    return art
+
+
+def run_fused3d(torch, root: str, workdir: str, ckpt: str, art: str, card: str) -> None:
+    """The fused volumetric predictor against the loop, alone and through
+    ``mis-predict3d-torch``."""
+    from medical_image_segmentation_tpu_torch import serve
+    from medical_image_segmentation_tpu_torch.data.volumes import minmax_unit, read_volume
+    from medical_image_segmentation_tpu_torch.eval.sliding_window import make_fused_predictor_3d, sliding_window_predict_3d
+    from medical_image_segmentation_tpu_torch.train import predict3d
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+
+    served_dir = os.path.join(root, "serve")
+    args = predict3d.parse_args(["--images_dir", served_dir, "--output_dir", workdir])
+    state = torch.load(ckpt, map_location=VOL_DEVICE, weights_only=True)["model"]
+    x01 = torch.from_numpy(minmax_unit(read_volume(os.path.join(served_dir, "scan_0.nii.gz")))[..., None]).to(VOL_DEVICE)
+    x = serve.normalize_unit(x01, args.mean, args.std)
+    fields = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        task = Segmentation3DTask(features=VOL_FEATURES, device=VOL_DEVICE, dtype=dtype)
+        task.model.load_state_dict(state)
+        fused = make_fused_predictor_3d(task.logits, x.shape, VOL_CROP, batch_windows=VOL_BATCH, device=VOL_DEVICE)
+        eager, got = fused(x), fused(x)  # the warm-up pass, then the capture and a replay
+        want = sliding_window_predict_3d(task.logits, x, VOL_CROP, batch_windows=VOL_BATCH)
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(got.shape == want.shape and rel <= 1e-5, f"fused 3D against the loop in {name}: {rel} of the largest logit")
+        check(fused.replays == 1 and torch.equal(eager, got), "the eager pass and the replay of the fused predictor disagree")
+        fields[f"{name}_rel"] = rel
+        fields[f"{name}_capture_s"] = round(fused.capture_seconds, 3)
+    check(fused.n_windows == VOL_PREDICT_WINDOWS, f"the fused predictor tiles {fused.n_windows} windows")
+    _, window_fn = serve.load_window_predictor(art, device=VOL_DEVICE)
+    fused_art = make_fused_predictor_3d(window_fn, x01.shape, VOL_CROP, batch_windows=VOL_BATCH, device=VOL_DEVICE)
+    fused_art(x01)
+    rel = float((fused_art(x01) - want).abs().max() / want.abs().max())
+    check(rel <= 1e-5, f"the artifact replayed inside a captured graph differs from the checkpoint's loop by {rel}")
+    loop = lambda: sliding_window_predict_3d(task.logits, x, VOL_CROP, batch_windows=VOL_BATCH)  # noqa: E731
+    fields.update(artifact_in_graph_rel=rel, artifact_capture_s=round(fused_art.capture_seconds, 3),
+                  loop_device_ms=event_ms(torch, loop, 5), fused_device_ms=event_ms(torch, lambda: fused(x), 5),
+                  fused_artifact_device_ms=event_ms(torch, lambda: fused_art(x01), 5),
+                  loop_kernels_per_volume=device_breakdown(torch, loop, 2)["kernels"],
+                  graph_pool_gib=round(torch.cuda.memory_reserved() / 2**30, 2))
+
+    argv = ["--checkpoint", os.path.dirname(ckpt), "--device", VOL_DEVICE, "--features", *map(str, VOL_FEATURES),
+            "--window", *map(str, VOL_CROP), "--batch_windows", str(VOL_BATCH), "--images_dir", served_dir]
+    turns = []
+    for i, use_fused in enumerate((False, True, True, False)):
+        out = predict3d.run([*argv, "--output_dir", os.path.join(workdir, f"masks3d_turn{i}")], fused=use_fused)
+        check(out["volumes"] == len(VOL_PREDICT), f"predict3d turn {i}: {out}")
+        if use_fused:
+            check(out["fused_shapes"] == len(set(VOL_PREDICT)), f"built {out['fused_shapes']} predictors")
+        turns.append(("fused" if use_fused else "loop", out["value"], [round(t, 3) for t in out["seconds_per_volume"]],
+                      out.get("capture_seconds")))
+
+    # the traffic a captured graph is for: a directory of scans resampled to one grid, so every
+    # volume after the second replays. Copies of one file: reading, min-max and gzip cost the same.
+    same_dir = os.path.join(workdir, "serve_same")
+    os.makedirs(same_dir)
+    for i in range(VOL_SAME_SHAPE):
+        shutil.copy(os.path.join(served_dir, "scan_0.nii.gz"), os.path.join(same_dir, f"scan_{i:02d}.nii.gz"))
+    same_argv = [*argv[:-1], same_dir]
+    same = []
+    for i, use_fused in enumerate((False, True, True, False)):
+        out = predict3d.run([*same_argv, "--output_dir", os.path.join(workdir, f"masks3d_same{i}")], fused=use_fused)
+        check(out["volumes"] == VOL_SAME_SHAPE and (not use_fused or out["fused_shapes"] == 1), f"same-shape turn {i}: {out}")
+        steady = sorted(out["seconds_per_volume"][2:])
+        same.append(("fused" if use_fused else "loop", out["value"], round(steady[len(steady) // 2], 4),
+                     out.get("capture_seconds")))
+    phase("fused3d", volume="x".join(map(str, VOL_PREDICT[0])), windows=fused.n_windows, **fields,
+          cli_mvox_per_s_in_turns=[(n, v) for n, v, _, _ in turns],
+          cli_s_per_volume_in_turns=[(n, t) for n, _, t, _ in turns],
+          cli_capture_s=[round(c, 3) for _, _, _, c in turns if c is not None],
+          same_shape_volumes=VOL_SAME_SHAPE, same_shape_mvox_per_s_in_turns=[(n, v) for n, v, _, _ in same],
+          same_shape_median_s_per_volume_in_turns=[(n, t) for n, _, t, _ in same],
+          same_shape_capture_s=[round(c, 3) for _, _, _, c in same if c is not None], card=repr(card))
+
+
 def device_breakdown(torch, fn, steps: int = 3) -> dict:
     """Kernels a call of ``fn`` and their device time by kind, from
     ``torch.profiler`` over ``steps`` calls: the busy milliseconds a call and
@@ -1635,8 +1964,11 @@ def main(argv=None) -> int:
     card = smi[0] if smi else "nvidia-smi: no output"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    import importlib.util
+
     phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-          torch=torch.__version__, cuda=torch.version.cuda, tf32="off", card=repr(card))
+          torch=torch.__version__, cuda=torch.version.cuda, tf32="off",
+          triton_imports=importlib.util.find_spec("triton") is not None, card=repr(card))
 
     from medical_image_segmentation_tpu_torch.data import datamodules as dm_mod
     from medical_image_segmentation_tpu_torch.ops import _kernels
@@ -1661,6 +1993,11 @@ def main(argv=None) -> int:
             del task
             seg_ckpt = run_seg_train(torch, workdir, ssl_ckpt, card)
             run_predict(torch, workdir, seg_ckpt, card)
+            # the serving path: no TPU kernel lies on it, so none is launched
+            before = fa.fused_two_view_augment.launches
+            run_export(torch, workdir, seg_ckpt, card)
+            run_fused2d(torch, workdir, seg_ckpt, card)
+            serving_launches = fa.fused_two_view_augment.launches - before
             run_seg_step(torch, card)
             run_precrop(torch, fa, workdir, card)
             run_resume(torch, fa, workdir, card)
@@ -1679,12 +2016,19 @@ def main(argv=None) -> int:
             seg3d_ckpt = run_seg3d_train(torch, root, workdir, ssl3d_ckpt, card)
             run_resume3d(torch, root, workdir, card)
             run_predict3d(torch, root, workdir, seg3d_ckpt, card)
+            vol_launches = fa.fused_two_view_augment.launches
+            window_art = run_export3d(torch, root, workdir, seg3d_ckpt, card)
+            run_fused3d(torch, root, workdir, seg3d_ckpt, window_art, card)
+            serving_launches += fa.fused_two_view_augment.launches - vol_launches
+            fa.fused_two_view_augment.launches = vol_launches
         run_seg3d_step(torch, card)
         vol_launches = fa.fused_two_view_augment.launches
         check(vol_launches == 0, f"the volumetric path launched two_view_augment {vol_launches} times")
+        check(serving_launches == 0, f"the serving path launched two_view_augment {serving_launches} times")
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches,
-                                     "launches_volumetric_path": vol_launches, **kernel_record}])
+                                     "launches_volumetric_path": vol_launches,
+                                     "launches_serving_path": serving_launches, **kernel_record}])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -11,6 +11,14 @@ and ``aug_generator``, the state of the augmentation ``torch.Generator``
 ``fold_in(key(seed+1), step)`` is). Files written before these keys
 existed still load; the encoder graft reads only ``online``.
 
+``load_checkpoint`` also reads the JAX package's orbax checkpoints (a step
+directory ``<root>/<step>/`` or a root of them,
+``core/checkpoint.py:49-68`` there): ``load_orbax_checkpoint`` restores the
+saved tree as numpy arrays and ``core/convert.py`` turns its weights and
+BatchNorm statistics into the state dicts of this package, so a model
+trained there is served, probed, validated or grafted here. The optimizer
+state does not cross, so ``--resume`` refuses such a directory.
+
 ``load_byol_encoder_into_unet`` grafts the ONLINE encoder's backbone of a
 BYOL checkpoint (weights and BatchNorm running statistics; never the
 momentum target) into a U-Net's ``encoder``, adapting the stem to the
@@ -24,9 +32,13 @@ from __future__ import annotations
 import os
 import re
 import sys
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+
+from medical_image_segmentation_tpu_torch.core.convert import (
+    flax_to_state_dict, probe_flax_to_state_dict, unet3d_flax_to_state_dict, unet_flax_to_state_dict,
+)
 
 _STEP_FILE = re.compile(r"(\d+)\.pt$")
 _BACKBONE = "encoder.backbone."
@@ -64,6 +76,10 @@ def resume_latest(ckpt_dir: str, task, loader, generator: torch.Generator,
     keys takes its epoch from its step and leaves the generator alone."""
     step = latest_step(ckpt_dir)
     if step is None:
+        if latest_orbax_step(ckpt_dir) is not None:
+            raise SystemExit(f"--resume: {ckpt_dir} holds orbax checkpoints of the JAX package; their optimizer "
+                             "state is not converted, so a run cannot resume from them. Pass the directory as "
+                             "--ssl_checkpoint / --checkpoint to start from its weights")
         return None
     ckpt = load_checkpoint(os.path.join(ckpt_dir, f"{step}.pt"))
     task.load_state_dict(ckpt)
@@ -81,23 +97,106 @@ def resume_latest(ckpt_dir: str, task, loader, generator: torch.Generator,
     return task.step, epoch, skip
 
 
+def latest_orbax_step(ckpt_dir: str) -> Optional[int]:
+    """The largest digit-named subdirectory of ``ckpt_dir``: the JAX
+    package's latest step."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d) for d in os.listdir(ckpt_dir) if d.isdigit() and os.path.isdir(os.path.join(ckpt_dir, d))]
+    return max(steps, default=None)
+
+
+_ORBAX_SUBTREES = ("params", "batch_stats", "target_params", "target_batch_stats", "step")
+
+
+def load_orbax_checkpoint(path: str) -> Dict[str, Any]:
+    """The weights, BatchNorm statistics and step that the JAX package's
+    ``save_checkpoint`` wrote at the step directory ``path``, as nested
+    dicts of numpy arrays; the other entries of the saved state (optimizer
+    state, random keys) are left out. ``orbax`` is imported here and
+    nowhere else in the package."""
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise SystemExit(f"{path} is an orbax checkpoint of the JAX package; reading it needs the "
+                         f"orbax-checkpoint package, which is not installed here ({e}). Read it where orbax "
+                         "is installed and save a .pt with core/checkpoint.py::save_checkpoint") from e
+    import numpy as np
+
+    tree = ocp.PyTreeCheckpointer().restore(os.path.abspath(path))
+
+    def to_numpy(node):
+        if isinstance(node, Mapping):
+            return {k: to_numpy(v) for k, v in node.items()}
+        return np.asarray(node)
+
+    return {k: to_numpy(tree[k]) for k in _ORBAX_SUBTREES if tree.get(k) is not None}
+
+
+def orbax_to_state(tree: Mapping[str, Any]) -> Dict[str, object]:
+    """A restored JAX state as this package's checkpoint dict, weights and
+    BatchNorm statistics only: a ``BYOLState`` gives ``online`` and
+    ``target``, a segmentation ``TrainState`` (2D or 3D) gives ``model``, a
+    ``ProbeState`` gives ``head``; ``step`` where the state has one. No
+    ``optimizer`` entry: the tasks then keep their fresh optimizer."""
+    params = tree["params"]
+    stats = tree.get("batch_stats") or {}
+    out: Dict[str, object] = {}
+    if "step" in tree:
+        out["step"] = int(tree["step"])
+    if "target_params" in tree:
+        out["online"] = flax_to_state_dict(params, stats)
+        out["target"] = flax_to_state_dict(tree["target_params"], tree.get("target_batch_stats") or {})
+    elif "enc0" in params:
+        out["model"] = unet3d_flax_to_state_dict(params, stats)
+    elif "encoder" in params:
+        out["model"] = unet_flax_to_state_dict(params, stats)
+    elif "Dense_0" in params:
+        out["head"] = probe_flax_to_state_dict(params)
+    else:
+        raise ValueError(f"unknown JAX state: params hold {sorted(params)[:5]}")
+    return out
+
+
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, object]:
-    """The checkpoint at ``path``: a ``.pt`` file, or a directory whose
-    latest step is read."""
-    return torch.load(resolve_checkpoint_path(path), map_location=map_location, weights_only=True)
+    """The checkpoint at ``path``: a ``.pt`` file, an orbax step directory
+    of the JAX package, or a directory whose latest step of either kind is
+    read."""
+    path = resolve_checkpoint_path(path)
+    if os.path.isdir(path):
+        return orbax_to_state(load_orbax_checkpoint(path))
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def restore_model(task, path: str) -> int:
+    """Load the ``model`` weights of the checkpoint at ``path`` (any form
+    ``load_checkpoint`` takes) into ``task.model``, as the predict and
+    export entry points do; returns the checkpoint's step."""
+    ckpt = resolve_checkpoint_path(path)
+    state = load_checkpoint(ckpt, map_location=task.device)
+    task.model.load_state_dict(state["model"])
+    print(f"restored {ckpt} (step {state['step']})", file=sys.stderr)
+    return int(state["step"])
 
 
 def resolve_checkpoint_path(path: str) -> str:
-    """``path`` is a checkpoint file (``…/ckpt/5.pt``) or a checkpoint
-    directory, in which case its latest step is picked. Raises SystemExit
-    when the directory holds no steps."""
+    """``path`` is a checkpoint file (``…/ckpt/5.pt``) or a directory. Of a
+    directory its latest ``<step>.pt`` is picked; where it holds none, its
+    latest orbax step (a digit-named subdirectory); where it holds neither
+    and its own name is a number (``…/ckpt/5``), it is an orbax step
+    directory itself. Raises SystemExit for any other directory."""
     path = os.path.normpath(path)
-    if os.path.isdir(path):
-        step = latest_step(path)
-        if step is None:
-            raise SystemExit(f"no checkpoint steps under {path}")
+    if not os.path.isdir(path):
+        return path
+    step = latest_step(path)
+    if step is not None:
         return os.path.join(path, f"{step}.pt")
-    return path
+    step = latest_orbax_step(path)
+    if step is not None:
+        return os.path.join(path, str(step))
+    if os.path.basename(path).isdigit():
+        return path  # an orbax step directory itself
+    raise SystemExit(f"no checkpoint steps under {path}")
 
 
 def _adapt_conv1(weight: torch.Tensor, target_in: int, how: str = "sum") -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Sliding-window full-resolution segmentation, 2D and 3D. Port of
-``eval/sliding_window.py:24-126, 232-242, 277-334``.
+``eval/sliding_window.py:24-334``.
 
 An image larger than the network's window is tiled with overlapping
 windows (stride window/2 by default, the last window right-aligned), the
@@ -11,15 +11,36 @@ a whole number of batches by repeating its last window, so every forward
 sees one shape; the repeats are not blended.
 
 ``count_windows`` and ``count_windows_3d`` are the one place each window
-count is computed. The JAX package's fused one-dispatch predictors
-(``:129-229``) are not ported: here the loop is the one path for every
-window count. The 3D functions tile (D, H, W) volumes the same way, with a
-window and a stride per axis.
+count is computed. The 3D functions tile (D, H, W) volumes the same way,
+with a window and a stride per axis.
+
+Two variants. ``sliding_window_predict`` / ``sliding_window_predict_3d``
+are the loop: per window batch one stack of slices, one forward, and two
+in-place adds per window, all launched from Python. ``FusedPredictor``
+(``make_fused_predictor_2d`` / ``_3d``, ``:129-229`` of the reference) is
+the serving variant, specialized once per input shape: the window grid and
+the Hann product are precomputed, logits and weights accumulate in ONE
+(…, K+1) canvas so a window costs one slice-add, and on the card the whole
+extract → forward → blend sequence over all window batches is captured
+once as a CUDA graph and replayed per input, so an image costs one copy in,
+one graph launch and one copy out instead of hundreds of kernel launches
+from Python. The first input of a shape runs the function eagerly (that
+pass is the warm-up: cuDNN's algorithm search and the first allocations
+stay out of the graph), the second captures, so a shape seen once never
+pays for a capture, which costs about one more eager pass of host time. On
+the CPU the same function runs eagerly every time. A capture that fails
+raises; nothing falls back to the loop. The graph serves traffic whose
+shapes repeat (slices of one size, scans resampled to one grid); a shape
+that never comes back costs one eager pass, which is the loop's work. ``FusedCache`` keeps the predictors
+of the most recent shapes: each captured graph holds its own memory pool
+(canvas and activations), so the cache is bounded.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import time
+from collections import OrderedDict
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -139,6 +160,145 @@ def sliding_window_predict_3d(
             out_logits[z:z + wd, y:y + wh, x:x + ww] += weighted[j]
             weight_sum[z:z + wd, y:y + wh, x:x + ww] += blend
     return (out_logits / weight_sum)[:orig[0], :orig[1], :orig[2]]
+
+
+class FusedPredictor:
+    """Shape-specialized sliding-window predictor over ``len(window)``
+    spatial axes: ``predictor(x)`` with ``x`` of ``shape`` (*spatial, C),
+    already normalized, on ``device`` → (*spatial, K) f32 logits. Equal to
+    the loop in f32: the same products are added in the same order.
+    ``device`` has no default: it decides between the captured graph and
+    the eager function, and ``"cuda"`` raises where there is no card.
+
+    On a CUDA device the first call runs eagerly and is the warm-up, the
+    second captures the graph, and from then on every call replays it on a
+    static input buffer; ``capture_seconds`` is what the capture took.
+    ``apply_fn`` must launch the same kernels on every call: no
+    ``.item()``, no shape that depends on the data."""
+
+    def __init__(self, apply_fn: Callable[[torch.Tensor], torch.Tensor], shape: Sequence[int],
+                 window: Sequence[int], stride: Optional[Sequence[int]] = None, batch_windows: int = 8,
+                 num_classes: int = 1, *, device):
+        self.apply_fn = apply_fn
+        self.window = window = tuple(int(w) for w in window)
+        nd = len(window)
+        if stride is None:
+            stride = tuple(max(1, w // 2) for w in window)
+        self.shape = tuple(int(v) for v in shape)
+        self.orig = self.shape[:nd]
+        self.pads = tuple(max(w - o, 0) for w, o in zip(window, self.orig))
+        self.dims = tuple(o + p for o, p in zip(self.orig, self.pads))
+        self.num_classes = num_classes
+        self.batch_windows = batch_windows
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {str(self.device)!r} asked for, but CUDA is not available "
+                               "(pass device='cpu' for a CPU run)")
+
+        starts = [_window_starts(self.dims[i], window[i], int(stride[i])) for i in range(nd)]
+        coords = np.stack([g.ravel() for g in np.meshgrid(*starts, indexing="ij")], axis=-1).tolist()
+        self.n_windows = len(coords)
+        coords += coords[-1:] * ((-len(coords)) % batch_windows)  # pad to whole batches; the repeats are not blended
+        slices = [tuple(slice(c, c + w) for c, w in zip(at, window)) for at in coords]
+        self._batches = [slices[s:s + batch_windows] for s in range(0, len(slices), batch_windows)]
+
+        blend = torch.from_numpy(_blend_weights(window[0]))
+        for w in window[1:]:
+            blend = blend[..., None] * torch.from_numpy(_blend_weights(w))
+        self._blend = blend[..., None].to(self.device)  # (*window, 1)
+        self._graph = None
+        self._warm = False
+        self.capture_seconds = 0.0
+        self.replays = 0
+
+    @torch.no_grad()
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
+        if any(self.pads):
+            x = F.pad(x, (0, 0) + tuple(v for p in reversed(self.pads) for v in (0, p)))
+        k = self.num_classes
+        canvas = torch.zeros((*self.dims, k + 1), dtype=torch.float32, device=x.device)
+        ones = self._blend.expand(self.batch_windows, *self._blend.shape)
+        left = self.n_windows
+        for batch in self._batches:
+            logits = self.apply_fn(torch.stack([x[at] for at in batch])).float()
+            weighted = torch.cat([logits * self._blend, ones], dim=-1)
+            for j, at in enumerate(batch[:left]):
+                canvas[at] += weighted[j]
+            left -= len(batch)
+        full = canvas[..., :k] / canvas[..., k:]
+        return full[tuple(slice(0, o) for o in self.orig)]
+
+    def _capture(self) -> None:
+        t0 = time.time()
+        self._static_in = torch.zeros(self.shape, dtype=torch.float32, device=self.device)
+        torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._static_out = self._run(self._static_in)
+        self._graph = graph
+        self.capture_seconds = time.time() - t0
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape) != self.shape:
+            raise ValueError(f"predictor was built for inputs of shape {self.shape}, got {tuple(x.shape)}")
+        if self.device.type != "cuda":
+            return self._run(x)
+        if not self._warm:
+            self._warm = True
+            return self._run(x)
+        if self._graph is None:
+            self._capture()
+        self._static_in.copy_(x)
+        self._graph.replay()
+        self.replays += 1
+        return self._static_out.clone()
+
+
+def make_fused_predictor_3d(apply_fn, volume_shape, window, stride=None, batch_windows: int = 8,
+                            num_classes: int = 1, *, device) -> FusedPredictor:
+    """The serving variant of ``sliding_window_predict_3d`` for volumes of
+    ``volume_shape`` (D, H, W, C)."""
+    return FusedPredictor(apply_fn, volume_shape, window, stride, batch_windows, num_classes, device=device)
+
+
+def make_fused_predictor_2d(apply_fn, image_shape, window: int, stride: int = 0, batch_windows: int = 16,
+                            num_classes: int = 1, *, device) -> FusedPredictor:
+    """The serving variant of ``sliding_window_predict`` for images of
+    ``image_shape`` (H, W, C)."""
+    return FusedPredictor(apply_fn, image_shape, (window, window), (stride, stride) if stride > 0 else None,
+                          batch_windows, num_classes, device=device)
+
+
+class FusedCache:
+    """The predictors of the ``MAX_SHAPES`` most recently served input
+    shapes, built by ``make(shape)`` at a shape's first use. A directory of
+    scans of many sizes would otherwise keep one captured graph, with its
+    private memory pool, for every size it has seen."""
+
+    MAX_SHAPES = 4
+
+    def __init__(self, make: Callable[[Tuple[int, ...]], FusedPredictor]):
+        self._make = make
+        self._predictors: "OrderedDict[Tuple[int, ...], FusedPredictor]" = OrderedDict()
+        self.built = 0
+        self.capture_seconds = 0.0
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        shape = tuple(x.shape)
+        predictor = self._predictors.pop(shape, None)
+        if predictor is None:
+            predictor = self._make(shape)
+            self.built += 1
+            while len(self._predictors) >= self.MAX_SHAPES:
+                self._predictors.popitem(last=False)
+        self._predictors[shape] = predictor
+        before = predictor.capture_seconds
+        out = predictor(x)
+        self.capture_seconds += predictor.capture_seconds - before
+        return out
+
+    def __len__(self) -> int:
+        return len(self._predictors)
 
 
 def make_unet_window_fn(task) -> Callable[[torch.Tensor], torch.Tensor]:

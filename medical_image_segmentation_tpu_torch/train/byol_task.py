@@ -163,8 +163,12 @@ class BYOLTask:
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
         """The inverse of ``state_dict``: online, target, optimizer and step.
-        Other keys of a checkpoint (the trainer's) are ignored."""
+        Other keys of a checkpoint (the trainer's) are ignored. A
+        checkpoint converted from the JAX package holds no ``optimizer``:
+        the optimizer then starts fresh."""
         self.online.load_state_dict(state["online"])
         self.target.load_state_dict(state["target"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.state.clear()
+        if "optimizer" in state:
+            self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])

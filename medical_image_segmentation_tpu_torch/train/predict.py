@@ -1,25 +1,32 @@
 """Batched segmentation inference CLI (``mis-predict-torch``).
 
 Port of ``train/predict.py:41-321``: loads a checkpoint of
-``mis-train-segmentation-torch`` and writes a binary mask for every slice
+``mis-train-segmentation-torch`` (or an orbax checkpoint of the JAX
+package, or an exported artifact) and writes a binary mask for every slice
 of a PNG/DICOM directory or an MIS store.
 
   mis-predict-torch --checkpoint ckpt/seg --dataset DECATHLON_LIVER \\
       --images_dir slices/ --output_dir masks/ [--overlay_dir overlays/] \\
       [--sliding_window 224] [--threshold 0.5] [--batch_size 64]
+  mis-predict-torch --exported model.misx --images_dir slices/ --output_dir masks/
 
 - **batched** (default): nearest-resize each slice on the host to
   ``--image_size``, forward batches of ``--batch_size`` (a short last batch
   keeps the full shape; its stale rows are dropped), then nearest-resize
   each mask back to its slice's size;
 - **--sliding_window N**: full-resolution inference through overlapping
-  blended windows (``eval/sliding_window.py``), one loop path for every
-  window count.
+  blended windows (``eval/sliding_window.py``) through the fused
+  predictor: built once per slice shape (on the card, one captured CUDA
+  graph), kept for the most recent shapes, replayed per slice;
+- **--exported model.misx**: the batched mode served from an artifact of
+  ``mis-export-torch`` (``serve.py``); image size, batch buckets,
+  normalization, windows and threshold come from the artifact, so passing
+  any of them beside it is refused.
 
 Masks are 0/255 PNGs named after their inputs; ``--overlay_dir`` adds
 red overlays. The last line of standard output is a JSON throughput
-summary (images/s through load → predict → write). ``--exported`` (the
-AOT artifact) is not ported yet and raises.
+summary (images/s through load → predict → write). PNG slices are read
+with OpenCV where it is installed and with ``utils/png.py`` where it is not.
 """
 
 from __future__ import annotations
@@ -35,23 +42,28 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from medical_image_segmentation_tpu_torch.core.checkpoint import resolve_checkpoint_path
+from medical_image_segmentation_tpu_torch.core.checkpoint import restore_model
 from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
 from medical_image_segmentation_tpu_torch.data.loader import SEQUENTIAL, Loader
-from medical_image_segmentation_tpu_torch.eval.sliding_window import make_unet_window_fn, sliding_window_predict
+from medical_image_segmentation_tpu_torch.eval.sliding_window import (
+    FusedCache, make_fused_predictor_2d, make_unet_window_fn, sliding_window_predict,
+)
 from medical_image_segmentation_tpu_torch.ops.augment import parse_hu_windows
 from medical_image_segmentation_tpu_torch.ops.dice import post_process_masks
-from medical_image_segmentation_tpu_torch.serve import make_predict_fn, normalize_u8
+from medical_image_segmentation_tpu_torch.serve import load_predictor, make_predict_fn, normalize_u8
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
 from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
-from medical_image_segmentation_tpu_torch.utils.png import write_png
+from medical_image_segmentation_tpu_torch.utils.png import decode_png, to_gray, write_png
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="Batched U-Net mask inference (PyTorch/CUDA port)")
     ap.add_argument("--checkpoint", default=None,
-                    help="segmentation checkpoint directory (latest step) or a specific <step>.pt")
-    ap.add_argument("--exported", default=None, help="not ported yet")
+                    help="segmentation checkpoint directory (latest step), a specific <step>.pt, or an orbax "
+                         "checkpoint of the JAX package")
+    ap.add_argument("--exported", default=None,
+                    help="serve from a .misx artifact (mis-export-torch) instead of a "
+                         "checkpoint: no model code or restore, batched mode only")
     ap.add_argument("--arch", default="resnet18")
     ap.add_argument("--image_size", type=int, default=224,
                     help="network input size in batched mode (matches training)")
@@ -79,8 +91,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def _load_slice(path: str) -> np.ndarray:
-    """One grayscale slice as uint8 (H, W): PNG via OpenCV, DICOM via the
-    native reader with min-max scaling (``train/predict.py:73-95``)."""
+    """One grayscale slice as uint8 (H, W): DICOM via the native reader
+    with min-max scaling, PNG/JPEG via OpenCV (``train/predict.py:73-95``).
+    Without OpenCV a PNG goes through ``utils/png.py`` to the same pixels
+    (OpenCV's fixed-point BT.601 gray, 16 bit / 256) and a JPEG raises."""
     if path.lower().endswith(".dcm"):
         from medical_image_segmentation_tpu_torch.data.dicom import read_dicom
 
@@ -90,13 +104,20 @@ def _load_slice(path: str) -> np.ndarray:
         arr = arr.astype(np.float64)
         lo, hi = arr.min(), arr.max()
         return (((arr - lo) / (hi - lo) if hi > lo else arr * 0) * 255).astype(np.uint8)
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise ValueError(f"unreadable image {path}")
-    if img.ndim == 3:
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    try:
+        import cv2
+    except ImportError:
+        if not path.lower().endswith(".png"):
+            raise ValueError(f"{path}: reading JPEG slices needs OpenCV (cv2), which is not installed; "
+                             "convert the slices to PNG or DICOM") from None
+        with open(path, "rb") as f:
+            img = to_gray(decode_png(f.read()))
+    else:
+        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise ValueError(f"unreadable image {path}")
+        if img.ndim == 3:
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
     if img.dtype == np.uint16:  # 16-bit radiology PNGs
         img = (img / 256).astype(np.uint8)
     return img.astype(np.uint8)
@@ -138,18 +159,9 @@ def _sources(args) -> Iterator[Tuple[str, np.ndarray]]:
                 i += 1
 
 
-def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
-    """Serve every slice; returns the JSON summary it prints."""
-    args = parse_args(argv)
-    if (args.images_dir is None) == (args.image_store is None):
-        raise SystemExit("exactly one of --images_dir / --image_store is required")
-    if args.exported is not None:
-        raise SystemExit("--exported: the AOT artifact is not ported to the PyTorch package yet "
-                         "(see ROADMAP.md); run medical_image_segmentation_tpu for it")
-    if args.checkpoint is None:
-        raise SystemExit("--checkpoint is required")
-    device = resolve_device(args.device)
-
+def resolve_stats(args) -> Tuple[float, float]:
+    """Normalization stats: explicit ``--mean`` / ``--std`` win, else the
+    ``--dataset`` registry's."""
     mean, std = args.mean, args.std
     if mean is None or std is None:
         if args.dataset is None:
@@ -157,13 +169,50 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
         dm = get_datamodule(args.dataset)()
         mean = mean if mean is not None else float(dm.mean[0])
         std = std if std is not None else float(dm.std[0])
-    hu_windows = parse_hu_windows(args.hu_windows) if args.hu_windows else ()
-    task = SegmentationTask(arch=args.arch, n_classes=1, in_channels=len(hu_windows) or 1,
-                            dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device)
-    ckpt = resolve_checkpoint_path(args.checkpoint)
-    state = torch.load(ckpt, map_location=device, weights_only=True)
-    task.model.load_state_dict(state["model"])
-    print(f"restored {ckpt} (step {state['step']})", file=sys.stderr)
+    return mean, std
+
+
+def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, object]:
+    """Serve every slice; returns the JSON summary it prints. ``fused``
+    False serves ``--sliding_window`` through the loop instead of the fused
+    predictor (what the fused variant is measured against)."""
+    args = parse_args(argv)
+    if (args.images_dir is None) == (args.image_store is None):
+        raise SystemExit("exactly one of --images_dir / --image_store is required")
+    if (args.checkpoint is None) == (args.exported is None):
+        raise SystemExit("exactly one of --checkpoint / --exported is required")
+    if args.exported is not None and args.sliding_window:
+        raise SystemExit("--exported serves the batched function; --sliding_window needs --checkpoint")
+    if args.exported is not None:
+        # these are baked into the artifact at export time — accepting them
+        # here would silently serve with different values than requested
+        baked = {"threshold": 0.5, "hu_windows": None, "mean": None, "std": None, "dataset": None}
+        bad = [f"--{k}" for k, dv in baked.items() if getattr(args, k) != dv]
+        if bad:
+            raise SystemExit(f"{', '.join(bad)}: baked into the artifact at export time — "
+                             f"re-run mis-export-torch with the desired values instead")
+    device = resolve_device(args.device)
+
+    if args.exported is not None:
+        predictor = load_predictor(args.exported, device=device)
+        args.image_size = predictor.image_size
+        args.batch_size = max(predictor.batch_sizes)
+        print(f"loaded {args.exported} (step {predictor.meta.get('checkpoint_step')}, "
+              f"buckets {predictor.batch_sizes})", file=sys.stderr)
+
+        def predict_batch(buf: np.ndarray, n: int) -> np.ndarray:  # the artifact buckets and pads by itself
+            return predictor(buf[:n])
+    else:
+        mean, std = resolve_stats(args)
+        hu_windows = parse_hu_windows(args.hu_windows) if args.hu_windows else ()
+        task = SegmentationTask(arch=args.arch, n_classes=1, in_channels=len(hu_windows) or 1,
+                                dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device)
+        restore_model(task, args.checkpoint)
+        predict = make_predict_fn(task, mean, std, threshold=args.threshold, hu_windows=hu_windows)
+
+        def predict_batch(buf: np.ndarray, n: int) -> np.ndarray:  # a short last batch keeps the full shape
+            return predict(torch.from_numpy(buf).to(device)).cpu().numpy()[:n]
+
     os.makedirs(args.output_dir, exist_ok=True)
     if args.overlay_dir:
         os.makedirs(args.overlay_dir, exist_ok=True)
@@ -176,21 +225,29 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
 
     t0 = time.time()
     n_done = 0
+    extra: Dict[str, object] = {}
     if args.sliding_window:
         window_fn = make_unet_window_fn(task)
+        if fused:  # one predictor per slice shape, the most recent shapes kept
+            window_predict = FusedCache(lambda shape: make_fused_predictor_2d(
+                window_fn, shape, window=args.sliding_window, device=device))
+        else:
+            def window_predict(x):
+                return sliding_window_predict(window_fn, x, window=args.sliding_window)
         for name, img in _sources(args):
             x = normalize_u8(torch.from_numpy(img[..., None]).to(device), mean, std, hu_windows)
-            logits = sliding_window_predict(window_fn, x, window=args.sliding_window)
+            logits = window_predict(x)
             write(name, img, post_process_masks(logits, threshold=args.threshold)[..., 0].cpu().numpy())
             n_done += 1
+        if fused:
+            extra = {"fused_shapes": window_predict.built, "capture_seconds": window_predict.capture_seconds}
     else:
-        predict = make_predict_fn(task, mean, std, threshold=args.threshold, hu_windows=hu_windows)
         size = args.image_size
         buf = np.zeros((args.batch_size, size, size, 1), np.uint8)
         pending = []  # (name, slice) of the rows of buf in use
 
         def flush() -> int:
-            masks = predict(torch.from_numpy(buf).to(device)).cpu().numpy()[..., 0]
+            masks = predict_batch(buf, len(pending))[..., 0]
             for (name, img), mask in zip(pending, masks):
                 write(name, img, mask if mask.shape == img.shape else _resize_nearest(mask, img.shape))
             done = len(pending)
@@ -204,11 +261,13 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                 n_done += flush()
         if pending:
             n_done += flush()
+        if args.exported is not None:  # deserializing the buckets, inside "seconds" as it is lazy
+            extra = {"load_seconds": predictor.load_seconds}
 
     dt = time.time() - t0
     summary = {"metric": "predict_images_per_sec", "value": round(n_done / dt, 2), "unit": "images/sec",
                "images": n_done, "mode": "sliding_window" if args.sliding_window else "batched",
-               "exported": False, "seconds": dt}
+               "exported": args.exported is not None, "seconds": dt, **extra}
     print(json.dumps(summary))
     return summary
 

@@ -1,21 +1,28 @@
 """Volumetric mask inference CLI (``mis-predict3d-torch``).
 
 Port of ``train/predict3d.py:30-185``: loads a checkpoint of
-``mis-train-segmentation3d-torch`` and writes a binary mask for every NIfTI
-volume of a directory, at its native size, through overlapped
-sliding-window blending (``eval/sliding_window.py::sliding_window_predict_3d``,
-one loop path for every window count).
+``mis-train-segmentation3d-torch`` (or an orbax checkpoint of the JAX
+package, or an exported window artifact) and writes a binary mask for every
+NIfTI volume of a directory, at its native size, through overlapped
+sliding-window blending: the fused predictor of ``eval/sliding_window.py``,
+built once per volume shape (on the card, one captured CUDA graph), kept
+for the most recent shapes and replayed per volume.
 
   mis-predict3d-torch --checkpoint ckpt/seg3d --features 32 64 128 256 \\
       --images_dir volumes/ --output_dir masks/ --window 32 64 64
+  mis-predict3d-torch --exported model.misx --images_dir volumes/ --output_dir masks/
 
 Each volume is min-max scaled to 0..1, turned from the file's (X, Y, Z) to
 (D=Z, H=X, W=Y), windowed (``--hu_windows``) and normalized; the mask is
 sigmoid > ``--threshold``, written as uint8 0/1 ``<stem>_mask.nii.gz`` back
-in (X, Y, Z), so it overlays its input in any viewer. The last line of
-standard output is a JSON throughput summary (megavoxels a second through
-read → predict → write). ``--exported`` (the AOT window artifact) is not
-ported yet and raises.
+in (X, Y, Z): the input's voxel grid and axis order under an identity
+header (unit spacing, no affine of the input's), as the JAX CLI writes it.
+With ``--exported`` (``mis-export3d-torch``) the window shape, the window
+batch, the display windows and the normalization come from the artifact,
+which takes raw 0..1 windows (a volume smaller than the window is then
+zero-padded before it is normalized, and after on the checkpoint path, as
+in the JAX CLI). The last line of standard output is a JSON
+throughput summary (megavoxels a second through read → predict → write).
 """
 
 from __future__ import annotations
@@ -30,12 +37,15 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from medical_image_segmentation_tpu_torch.core.checkpoint import resolve_checkpoint_path
+from medical_image_segmentation_tpu_torch.core.checkpoint import restore_model
 from medical_image_segmentation_tpu_torch.data.nifti import write_nifti
 from medical_image_segmentation_tpu_torch.data.volumes import minmax_unit, nifti_names, read_volume
-from medical_image_segmentation_tpu_torch.eval.sliding_window import count_windows_3d, sliding_window_predict_3d
-from medical_image_segmentation_tpu_torch.ops.augment import apply_hu_windows, parse_hu_windows
+from medical_image_segmentation_tpu_torch.eval.sliding_window import (
+    FusedCache, count_windows_3d, make_fused_predictor_3d, sliding_window_predict_3d,
+)
+from medical_image_segmentation_tpu_torch.ops.augment import parse_hu_windows
 from medical_image_segmentation_tpu_torch.ops.dice import post_process_masks
+from medical_image_segmentation_tpu_torch.serve import load_window_predictor, normalize_unit
 from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
 from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
 
@@ -43,8 +53,12 @@ from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="Volumetric 3D U-Net mask inference (PyTorch/CUDA port)")
     ap.add_argument("--checkpoint", default=None,
-                    help="seg3d checkpoint directory (latest step) or a specific <step>.pt")
-    ap.add_argument("--exported", default=None, help="not ported yet")
+                    help="seg3d checkpoint directory (latest step), a specific <step>.pt, or an orbax "
+                         "checkpoint of the JAX package")
+    ap.add_argument("--exported", default=None,
+                    help="serve from a window .misx artifact (mis-export3d-torch) instead of "
+                         "a checkpoint: window shape, normalization and hu_windows come from "
+                         "the artifact; no model code or restore")
     ap.add_argument("--features", type=int, nargs="+", default=(32, 64, 128, 256))
     ap.add_argument("--norm", default="group", choices=["group", "batch"])
     ap.add_argument("--window", type=int, nargs=3, default=(32, 64, 64), metavar=("D", "H", "W"),
@@ -64,39 +78,57 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
-    """Serve every volume; returns the JSON summary it prints."""
+def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, object]:
+    """Serve every volume; returns the JSON summary it prints. ``fused``
+    False serves through the loop instead of the fused predictor (what the
+    fused variant is measured against)."""
     args = parse_args(argv)
     if (args.checkpoint is None) == (args.exported is None):
         raise SystemExit("exactly one of --checkpoint / --exported is required")
-    if args.exported is not None:
-        raise SystemExit("--exported: the AOT window artifact is not ported to the PyTorch package yet "
-                         "(ROADMAP.md item 19); run medical_image_segmentation_tpu for it")
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
 
-    hu_windows = parse_hu_windows(args.hu_windows, value_max=1.0) if args.hu_windows else ()
-    task = Segmentation3DTask(in_channels=len(hu_windows) or 1, features=tuple(args.features), norm=args.norm,
-                              dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device)
-    ckpt = resolve_checkpoint_path(args.checkpoint)
-    state = torch.load(ckpt, map_location=device, weights_only=True)
-    task.model.load_state_dict(state["model"])
-    print(f"restored {ckpt} (step {state['step']})", file=sys.stderr)
+    if args.exported is not None:
+        # weights, hu_windows and normalize are inside the artifact: it is
+        # fed RAW 0..1 windows
+        meta, window_fn = load_window_predictor(args.exported, device=device)
+        args.window = tuple(meta["window"])
+        args.batch_windows = int(meta["batch_windows"])
+        print(f"loaded {args.exported} (step {meta.get('checkpoint_step')}, "
+              f"window {args.window} x{args.batch_windows})", file=sys.stderr)
+
+        def prepare(x01: torch.Tensor) -> torch.Tensor:
+            return x01
+    else:
+        hu_windows = parse_hu_windows(args.hu_windows, value_max=1.0) if args.hu_windows else ()
+        task = Segmentation3DTask(in_channels=len(hu_windows) or 1, features=tuple(args.features), norm=args.norm,
+                                  dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device)
+        restore_model(task, args.checkpoint)
+        window_fn = task.logits
+
+        def prepare(x01: torch.Tensor) -> torch.Tensor:
+            return normalize_unit(x01, args.mean, args.std, hu_windows)
 
     names = nifti_names(args.images_dir)
     if not names:
         raise SystemExit(f"no NIfTI volumes under {args.images_dir}")
     os.makedirs(args.output_dir, exist_ok=True)
     window = tuple(args.window)
+    if fused:  # one predictor per volume shape, the most recent shapes kept
+        predict = FusedCache(lambda shape: make_fused_predictor_3d(
+            window_fn, shape, window=window, batch_windows=args.batch_windows, device=device))
+    else:
+        def predict(x):
+            return sliding_window_predict_3d(window_fn, x, window=window, batch_windows=args.batch_windows)
 
     t0 = time.time()
     n_vox, n_win, per_volume = 0, 0, []
     for name in names:
         t_vol = time.time()
-        x = torch.from_numpy(minmax_unit(read_volume(os.path.join(args.images_dir, name)))[..., None]).to(device)
-        x = (apply_hu_windows(x, hu_windows) - args.mean) / args.std
-        logits = sliding_window_predict_3d(task.logits, x, window=window, batch_windows=args.batch_windows)
+        x = prepare(torch.from_numpy(minmax_unit(read_volume(os.path.join(args.images_dir, name)))[..., None])
+                    .to(device))
+        logits = predict(x)
         mask = post_process_masks(logits, threshold=args.threshold)[..., 0].to(torch.uint8).cpu().numpy()
         mask = np.moveaxis(mask, 0, -1)  # back to (X, Y, Z)
         out = os.path.join(args.output_dir, f"{name.split('.nii')[0]}_mask.nii.gz")
@@ -108,7 +140,9 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     dt = time.time() - t0
     summary = {"metric": "predict3d_megavoxels_per_sec", "value": round(n_vox / dt / 1e6, 3), "unit": "Mvox/s",
                "volumes": len(names), "window": list(window), "windows": n_win, "seconds": dt,
-               "seconds_per_volume": per_volume}
+               "seconds_per_volume": per_volume, "exported": args.exported is not None}
+    if fused:
+        summary.update(fused_shapes=predict.built, capture_seconds=predict.capture_seconds)
     print(json.dumps(summary))
     return summary
 

@@ -118,7 +118,11 @@ class SegmentationTask:
         return {"step": self.step, "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
-        """The inverse of ``state_dict``; other keys are ignored."""
+        """The inverse of ``state_dict``; other keys are ignored. A
+        checkpoint converted from the JAX package holds no ``optimizer``:
+        the optimizer then starts fresh."""
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.state.clear()
+        if "optimizer" in state:
+            self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])

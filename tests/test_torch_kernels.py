@@ -280,3 +280,26 @@ def test_kernel_plan_of_the_main_shape_and_refusals(cuda):
     view.copy_(images)
     assert view.data_ptr() % 16 != 0
     _check_on_card(view, cfg, cfg, (100.0,), (50.0,), params)
+
+
+@pytest.mark.gpu
+def test_fused_window_predictor_replays_its_graph_equal_to_the_loop(cuda):
+    """No hand-written kernel, but card-only all the same: on the CPU the
+    fused predictor never captures (``tests/test_torch_fused_window.py``
+    holds it eagerly there, against JAX)."""
+    from medical_image_segmentation_tpu_torch.eval import sliding_window as tsw
+
+    conv = torch.nn.Conv2d(1, 1, 3, padding=1).to(cuda)
+
+    def fn(w):
+        return conv(w.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    fused = tsw.make_fused_predictor_2d(fn, (70, 53, 1), 32, device=cuda)
+    for seed in (0, 1, 2):  # eager (the warm-up), capture + replay, replay
+        x = torch.from_numpy(np.random.default_rng(seed).standard_normal((70, 53, 1)).astype(np.float32)).to(cuda)
+        with torch.no_grad():
+            want = tsw.sliding_window_predict(fn, x, 32)
+        got = fused(x)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert fused.replays == 2 and fused.capture_seconds > 0

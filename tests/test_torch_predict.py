@@ -145,10 +145,18 @@ def test_cli_refuses_what_it_cannot_serve(tmp_path, checkpoints):
     base = ["--output_dir", str(tmp_path / "o"), "--device", "cpu", "--dataset", "DECATHLON_HEART"]
     with pytest.raises(SystemExit, match="exactly one of"):
         tpredict.main(["--checkpoint", checkpoints[1], *base])
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="--dataset: baked into the artifact"):
         tpredict.main(["--exported", "m.misx", "--images_dir", str(tmp_path), *base])
-    with pytest.raises(SystemExit, match="--checkpoint is required"):
+    with pytest.raises(SystemExit, match="exactly one of --checkpoint / --exported"):
         tpredict.main(["--images_dir", str(tmp_path), *base])
+    with pytest.raises(SystemExit, match="exactly one of --checkpoint / --exported"):
+        tpredict.main(["--exported", "m.misx", "--checkpoint", checkpoints[1], "--images_dir", str(tmp_path), *base])
+    with pytest.raises(SystemExit, match="--sliding_window needs --checkpoint"):
+        tpredict.main(["--exported", "m.misx", "--images_dir", str(tmp_path), "--output_dir", str(tmp_path / "o"),
+                       "--device", "cpu", "--sliding_window", "64"])
+    with pytest.raises(FileNotFoundError, match="m.misx"):
+        tpredict.main(["--exported", str(tmp_path / "m.misx"), "--images_dir", str(tmp_path), "--output_dir",
+                       str(tmp_path / "o"), "--device", "cpu"])
     with pytest.raises(SystemExit, match="--mean/--std"):
         tpredict.main(["--checkpoint", checkpoints[1], "--images_dir", str(tmp_path), "--output_dir",
                        str(tmp_path / "o"), "--device", "cpu"])
@@ -227,10 +235,122 @@ def test_png_writer_refuses_other_inputs():
         encode_png(np.zeros((2, 2), np.float32))
     with pytest.raises(ValueError, match="takes"):
         encode_png(np.zeros((2, 2, 2), np.uint8))
-    ok, buf = cv2.imencode(".png", np.arange(64, dtype=np.uint8).reshape(8, 8))  # OpenCV filters its rows
+    img = np.arange(64, dtype=np.uint8).reshape(8, 8)
+    ok, buf = cv2.imencode(".png", img)  # OpenCV filters its rows: read since the decoder knows every filter
     assert ok
-    with pytest.raises(ValueError, match="filter type 0"):
-        decode_png(buf.tobytes())
+    np.testing.assert_array_equal(decode_png(buf.tobytes()), img)
+    with pytest.raises(ValueError, match="interlaced"):
+        decode_png(_png_bytes(img, 0, 8, 0, interlace=1))
+    with pytest.raises(ValueError, match="unknown filter type 7"):
+        decode_png(_png_bytes(img, 0, 8, 7))
+    with pytest.raises(ValueError, match="not a PNG"):
+        decode_png(b"GIF89a" + bytes(20))
+    with pytest.raises(ValueError, match="holds .* bytes"):
+        decode_png(_png_bytes(img, 0, 8, 0, drop_rows=1))
+
+
+def _filter_rows(rows, kind, bpp):
+    """PNG-filter (h, stride) uint8 rows: ``kind`` 0-4 for every row, 5
+    cycles through all five, 7 writes an invalid type byte."""
+    h, stride = rows.shape
+    out = np.zeros((h, stride + 1), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    zeros = np.zeros(bpp, np.int64)
+    for y in range(h):
+        cur = rows[y].astype(np.int64)
+        k = y % 5 if kind == 5 else kind
+        left, upleft = np.concatenate([zeros, cur[:-bpp]]), np.concatenate([zeros, prev[:-bpp]])
+        if k == 1:
+            f = cur - left
+        elif k == 2:
+            f = cur - prev
+        elif k == 3:
+            f = cur - (left + prev) // 2
+        elif k == 4:
+            p = left + prev - upleft
+            pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
+            f = cur - np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        else:
+            f = cur
+        out[y, 0], out[y, 1:] = k, f & 255
+        prev = cur
+    return out
+
+
+def _png_bytes(img, ctype, depth, kind, palette=None, trns=None, interlace=0, drop_rows=0):
+    """A PNG of ``img`` ((H, W) or (H, W, C) samples) written by hand with
+    the row filter ``kind``, split over two IDAT chunks."""
+    import struct
+    import zlib
+
+    from medical_image_segmentation_tpu_torch.utils.png import _SIGNATURE, _chunk
+
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    if depth == 16:
+        rows = img.astype(">u2").reshape(h, -1).view(np.uint8)
+    elif depth == 8:
+        rows = img.reshape(h, -1).astype(np.uint8)
+    else:
+        bits = ((img.reshape(h, w, 1) >> np.arange(depth - 1, -1, -1)) & 1).astype(np.uint8).reshape(h, -1)
+        rows = np.packbits(bits, axis=1)
+    body = zlib.compress(_filter_rows(rows, kind, max(1, c * depth // 8))[:h - drop_rows].tobytes())
+    out = _SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    if palette is not None:
+        out += _chunk(b"PLTE", palette.tobytes())
+    if trns is not None:
+        out += _chunk(b"tRNS", trns.tobytes())
+    half = len(body) // 2
+    return out + _chunk(b"IDAT", body[:half]) + _chunk(b"IDAT", body[half:]) + _chunk(b"IEND", b"")
+
+
+_PNG_KINDS = {"gray": (0, 1), "rgb": (2, 3), "palette": (3, 1), "gray_alpha": (4, 2), "rgba": (6, 4)}
+
+
+@pytest.mark.parametrize("kind", range(6), ids=["none", "sub", "up", "average", "paeth", "mixed"])
+@pytest.mark.parametrize("color,depth", [("gray", 8), ("gray", 16), ("gray", 1), ("gray", 4), ("rgb", 8), ("rgb", 16),
+                                         ("palette", 8), ("palette", 2), ("gray_alpha", 8), ("rgba", 8),
+                                         ("rgba", 16)])
+def test_png_decoder_and_slice_loader_match_opencv(tmp_path, monkeypatch, kind, color, depth):
+    """``decode_png`` gives OpenCV's pixels for every row filter, bit depth
+    and colour type, and ``_load_slice`` without OpenCV gives the slice it
+    gives with it (the fixed-point BT.601 gray, 16 bit / 256)."""
+    ctype, c = _PNG_KINDS[color]
+    rng = np.random.default_rng(100 * kind + depth + ctype)
+    h, w = 11, 19
+    img = rng.integers(0, 1 << depth, size=(h, w) if c == 1 else (h, w, c)).astype(np.uint16 if depth == 16
+                                                                                   else np.uint8)
+    palette = rng.integers(0, 256, size=(1 << depth, 3), dtype=np.uint8) if color == "palette" else None
+    trns = rng.integers(0, 256, size=3, dtype=np.uint8) if color == "palette" and depth == 8 else None
+    data = _png_bytes(img, ctype, depth, kind, palette, trns)
+    path = str(tmp_path / "x.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    assert want is not None
+    got = decode_png(data)
+    assert got.dtype == want.dtype
+    if want.ndim == 2:
+        np.testing.assert_array_equal(got, want)
+    elif got.shape[2] == 2:  # OpenCV expands gray+alpha to BGRA
+        np.testing.assert_array_equal(got[..., 0], want[..., 0])
+        np.testing.assert_array_equal(got[..., 1], want[..., 3])
+    else:
+        np.testing.assert_array_equal(got[..., [2, 1, 0] + [3] * (got.shape[2] - 3)], want)
+    with_cv2 = tpredict._load_slice(path)
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)  # import cv2 now raises ImportError
+    without = tpredict._load_slice(path)
+    assert without.dtype == np.uint8 and without.shape == (h, w)
+    np.testing.assert_array_equal(without, with_cv2)
+
+
+def test_slice_loader_without_opencv_refuses_jpeg_by_name(tmp_path, monkeypatch):
+    path = str(tmp_path / "x.jpg")
+    cv2.imwrite(path, np.zeros((8, 8), np.uint8))
+    assert tpredict._load_slice(path).shape == (8, 8)
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    with pytest.raises(ValueError, match="needs OpenCV"):
+        tpredict._load_slice(path)
 
 
 def test_mask_overlay_and_grid_files_match_jax(tmp_path):

@@ -174,8 +174,8 @@ def test_what_is_not_ported_raises_and_names_its_roadmap_item(decathlon, tmp_pat
     with pytest.raises(SystemExit, match=r"--space_shards.*ROADMAP.md item 22.*not ported"):
         train_segmentation3d.run(_seg_argv(decathlon, tmp_path, "--space_shards", "2"))
     base = ["--images_dir", str(decathlon / "imagesTr"), "--output_dir", str(tmp_path / "o"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match=r"--exported.*not ported.*ROADMAP.md item 19"):
-        predict3d.run(["--exported", "m.misx", *base])
+    with pytest.raises(FileNotFoundError, match="m.misx"):  # --exported is served now: a missing artifact is named
+        predict3d.run(["--exported", str(tmp_path / "m.misx"), *base])
     with pytest.raises(SystemExit, match="exactly one of"):
         predict3d.run(base)
     with pytest.raises(SystemExit, match="exactly one of"):
