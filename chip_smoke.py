@@ -103,6 +103,31 @@ The SSL path's phases, each at the BYOL width of phase 6:
 16. hbm: the memory guard's report on both configurations, and the task
    and generator bit-equal across its probe step.
 
+The data-curation path and the parity harness (after hbm), with ``cv2``
+and ``PIL`` absent (not importable) or blocked for the two phases, so
+every image goes through the port's numpy routes:
+
+- ingest: writes from a seed 64 distinct 300×300 uint16 DICOMs and 8
+  pixel copies in three TCIA-style trees, 4 Decathlon NIfTI pairs of
+  256×256×12 with a mask blob and a val tree of 8 uint16 PNGs, then runs
+  the CLIs' entry points with 2 spawned workers: ``create_subset``
+  (``dicom_sizes``, ``dicom_hashes``, ``write_subset``), ``create_store``
+  (JPEG at 224), ``compute_stats`` (``--center_crop 224``),
+  ``slice_decathlon``, ``create_splits`` and ``create_seg_store``. The
+  dedup must keep 64, the store hold 64 images of 224², the slices and seg
+  stores 48. Prints each stage's seconds and counts, the host's ms an
+  image for JPEG encode and decode and for INTER_AREA, and whether the
+  libraries were absent or blocked. No kernel lies on this path; the run
+  fails if one is launched.
+- parity: ``mis-parity-torch`` on that raw data at the canonical width
+  (resnet18, hidden 4096 / projection 256, bf16; ``--subset_size 64
+  --image_size 224 --ssl_epochs 1 --ssl_batch_size 64 --seg_epochs 1
+  --seg_batch_size 16 --fractions 100``): every stage, a report with the
+  scratch and SSL inits' test Dice in [0, 1], then a second call that
+  re-runs nothing. The pretrain stage must launch ``two_view_augment``;
+  the kernel is then held against its plain version on a batch of 64 of
+  the harness's own 224² store (1 bf16 ulp) and timed.
+
 The volumetric path's phases, at the 3D trainers' defaults (``UNet3D`` of
 features (32, 64, 128, 256), GroupNorm, bf16, volumes fitted to 64×96×96,
 crops of 32×64×64, batch 4; volumetric BYOL with hidden 4096 and projection
@@ -1399,6 +1424,307 @@ def run_hbm(torch, fa, card: str) -> None:
 # (``train/train_segmentation3d.py``: UNet3D (32, 64, 128, 256), GroupNorm,
 # bf16, volume 64×96×96, crop 32×64×64, batch 4; ``train/train_ssl3d.py``:
 # hidden 4096, projection 256) on synthetic NIfTI volumes.
+INGEST_DICOMS = 64                 # distinct 300×300 uint16 DICOMs, plus INGEST_DUPLICATES copies of some
+INGEST_DUPLICATES = 8
+INGEST_DICOM_SIZE = 300
+INGEST_VOLUMES = 4                 # Decathlon NIfTI pairs of INGEST_VOLUME (X, Y, Z)
+INGEST_VOLUME = (256, 256, 12)
+INGEST_VAL_PNGS = 8
+INGEST_PROCS = 2
+INGEST_IMAGE_SIZE = 224
+PARITY_DEVICE = "cuda"
+# the canonical width (resnet18, the trainers' default heads, bf16), depth cut by flags
+PARITY_FLAGS = ["--subset_size", "64", "--image_size", "224", "--ssl_epochs", "1", "--ssl_batch_size", "64",
+                "--seg_epochs", "1", "--seg_batch_size", "16", "--fractions", "100", "--arch", "resnet18"]
+
+
+class blocked_image_libraries:
+    """Within the block, ``import cv2`` and ``import PIL`` fail, so the port
+    takes its numpy routes: where the libraries do not import nothing changes;
+    where they are installed, ``sys.modules`` holds None for them and a
+    directory at the front of ``sys.path`` holds modules that raise on
+    import, which the ingest CLIs' spawned workers inherit with the path.
+    ``state`` says which for each: ``absent`` (it does not import) or
+    ``blocked`` (it imports outside the block)."""
+
+    def __init__(self, workdir: str):
+        import importlib
+
+        self.shim = os.path.join(workdir, "blocked_modules")
+        self.names = ("cv2", "PIL")
+        self.state = {}
+        for n in self.names:
+            try:
+                importlib.import_module(n)
+                self.state[n] = "blocked"
+            except ImportError:
+                self.state[n] = "absent"
+
+    def __enter__(self):
+        self.saved = {n: sys.modules.get(n, "unset") for n in self.names}
+        if "blocked" in self.state.values():
+            os.makedirs(os.path.join(self.shim, "PIL"), exist_ok=True)
+            for path in ("cv2.py", os.path.join("PIL", "__init__.py")):
+                with open(os.path.join(self.shim, path), "w") as f:
+                    f.write("raise ImportError('blocked: the port takes its numpy image routes here')\n")
+            sys.path.insert(0, self.shim)
+        for n in self.names:
+            sys.modules[n] = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.shim in sys.path:
+            sys.path.remove(self.shim)
+        for n, mod in self.saved.items():
+            if mod == "unset":
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = mod
+        return False
+
+
+def write_ingest_data(root: str) -> dict:
+    """Synthetic raw inputs of the curation path, from a seed, written with
+    the port's own writers: TCIA-style DICOM trees (INGEST_DICOMS distinct
+    images and INGEST_DUPLICATES pixel copies), Decathlon NIfTI pairs with a
+    mask blob, and a val tree of 16-bit PNGs."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.dicom import write_dicom
+    from medical_image_segmentation_tpu_torch.data.nifti import write_nifti
+    from medical_image_segmentation_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(0)
+    n = INGEST_DICOM_SIZE
+    y, x = np.mgrid[:n, :n]
+    dicoms = os.path.join(root, "med_datasets")
+    for i in range(INGEST_DICOMS):
+        ds = os.path.join(dicoms, ("pancreasct", "ctcolongraphy", "hcctaceseg")[i % 3])
+        os.makedirs(ds, exist_ok=True)
+        body = 1500 * np.exp(-(((x - n / 2 - 20 * np.sin(i)) / (60 + i)) ** 2 + ((y - n / 2) / 90) ** 2))
+        arr = (body + rng.integers(0, 400, size=(n, n))).astype(np.uint16)
+        write_dicom(os.path.join(ds, f"img{i:03d}.dcm"), arr)
+        if i < INGEST_DUPLICATES:
+            write_dicom(os.path.join(ds, f"copy{i:03d}.dcm"), arr)
+    task = os.path.join(root, "Task03_Liver")
+    for sub in ("imagesTr", "labelsTr"):
+        os.makedirs(os.path.join(task, sub), exist_ok=True)
+    X, Y, Z = INGEST_VOLUME
+    gx, gy, gz = np.mgrid[:X, :Y, :Z]
+    for v in range(INGEST_VOLUMES):
+        blob = ((gx - X / 2 - 10 * v) / (X / 5)) ** 2 + ((gy - Y / 2) / (Y / 6)) ** 2 + ((gz - Z / 2) / (Z / 2.5)) ** 2 < 1
+        vol = rng.normal(0, 30, size=INGEST_VOLUME) - 100 + 180 * blob
+        write_nifti(os.path.join(task, "imagesTr", f"liver_{v}.nii.gz"), vol.astype(np.float32))
+        write_nifti(os.path.join(task, "labelsTr", f"liver_{v}.nii.gz"), blob.astype(np.uint8))
+    val = os.path.join(root, "nih_test_pngs")
+    os.makedirs(val, exist_ok=True)
+    for i in range(INGEST_VAL_PNGS):
+        write_png(os.path.join(val, f"val{i}.png"), rng.integers(0, 65536, size=(256, 256)).astype(np.uint16))
+    return dict(dicoms=dicoms, images=os.path.join(task, "imagesTr"), labels=os.path.join(task, "labelsTr"),
+                val=val)
+
+
+def codec_ms(store: str, png_dir: str) -> dict:
+    """Host milliseconds an image of the numpy routes on this machine: JPEG
+    encode and decode of the store's 224² images, INTER_AREA of the curated
+    16-bit PNGs to 224."""
+    import glob
+
+    from medical_image_segmentation_tpu_torch.data.store import StoreReader
+    from medical_image_segmentation_tpu_torch.utils.imageio import read_image
+    from medical_image_segmentation_tpu_torch.utils.jpeg import decode_jpeg_numpy, encode_jpeg_numpy
+    from medical_image_segmentation_tpu_torch.utils.resize import resize_numpy
+
+    reader = StoreReader(store)
+    payloads = [reader.payload(i) for i in range(8)]
+    images = [reader.image(i)[..., 0] for i in range(8)]
+    reader.close()
+    pngs = [read_image(p) for p in sorted(glob.glob(os.path.join(png_dir, "*", "*.png")))[:8]]
+    out = {}
+    for name, fn, items in (("jpeg_decode", decode_jpeg_numpy, payloads),
+                            ("jpeg_encode", lambda im: encode_jpeg_numpy(im, 90), images),
+                            ("inter_area", lambda im: resize_numpy(
+                                im, (INGEST_IMAGE_SIZE, INGEST_IMAGE_SIZE), "area"), pngs)):
+        t0 = time.perf_counter()
+        for item in items:
+            fn(item)
+        out[f"{name}_ms_per_image"] = 1000.0 * (time.perf_counter() - t0) / len(items)
+    return out
+
+
+def run_ingest(torch, fa, workdir: str, card: str) -> dict:
+    """The curation CLIs on synthetic raw data, cv2 and PIL absent or
+    blocked, with worker pools of INGEST_PROCS: scans and the curated
+    subset, a JPEG store at 224, its statistics, Decathlon slices, splits
+    and paired seg stores. No kernel lies on this path."""
+    import json as _json
+
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.ingest import (
+        compute_stats, create_seg_store, create_splits, create_store, create_subset, slice_decathlon)
+    from medical_image_segmentation_tpu_torch.data.store import StoreReader
+
+    t0 = time.time()
+    raw = write_ingest_data(os.path.join(workdir, "raw"))
+    write_s = time.time() - t0
+    out = os.path.join(workdir, "ingest")
+    os.makedirs(out, exist_ok=True)
+    procs = str(INGEST_PROCS)
+    seconds = {}
+
+    def stage(name, fn, argv):
+        t0 = time.time()
+        check(fn(argv) == 0, f"ingest stage {name} failed")
+        seconds[name] = round(time.time() - t0, 2)
+
+    fa.fused_two_view_augment.launches = 0
+    with blocked_image_libraries(workdir) as libs:
+        for cmd in ("dicom_sizes", "dicom_hashes"):
+            stage(cmd, create_subset.main, [cmd, raw["dicoms"], "--output", os.path.join(out, f"{cmd}.json"),
+                                            "--num_processes", procs])
+        stage("write_subset", create_subset.main, [
+            "write_subset", "--dimensions_map", os.path.join(out, "dicom_sizes.json"),
+            "--hashes_map", os.path.join(out, "dicom_hashes.json"), "--output_dir", os.path.join(out, "subset"),
+            "--size", str(INGEST_DICOMS), "--num_processes", procs,
+            "--mapping_output", os.path.join(out, "subset_map.json")])
+        store = os.path.join(out, "radiology_train.mis")
+        stage("create_store", create_store.main, ["--png_dir", os.path.join(out, "subset"), "--output", store,
+                                                  "--max_resolution", str(INGEST_IMAGE_SIZE), "--num_workers", procs])
+        stats_json = os.path.join(out, "stats.json")
+        stage("compute_stats", compute_stats.main, ["--store", store, "--center_crop", str(INGEST_IMAGE_SIZE),
+                                                    "--output", stats_json])
+        slices = os.path.join(out, "slices")
+        stage("slice_decathlon", slice_decathlon.main, [
+            "--images_dir", raw["images"], "--labels_dir", raw["labels"], "--images_out",
+            os.path.join(slices, "images"), "--masks_out", os.path.join(slices, "masks"), "--num_processes", procs])
+        stage("create_splits", create_splits.main, ["--images_dir", os.path.join(slices, "images"),
+                                                    "--output_dir", os.path.join(out, "splits")])
+        stage("create_seg_store", create_seg_store.main, [
+            "--images_dir", os.path.join(slices, "images"), "--masks_dir", os.path.join(slices, "masks"),
+            "--output_prefix", os.path.join(out, "seg", "liver"),
+            "--split_file", os.path.join(out, "splits", "split_100_percent_train.json"),
+            "--image_size", str(INGEST_IMAGE_SIZE)])
+        for n in libs.names:
+            try:
+                __import__(n)
+                check(False, f"{n} imported inside the ingest phase")
+            except ImportError:
+                pass
+        timing = codec_ms(store, os.path.join(out, "subset"))
+    launches = fa.fused_two_view_augment.launches
+    check(launches == 0, f"the ingest path launched two_view_augment {launches} times")
+
+    with open(os.path.join(out, "dicom_hashes.json")) as f:
+        hashes = _json.load(f)
+    with open(os.path.join(out, "subset_map.json")) as f:
+        curated = _json.load(f)
+    check(len(hashes) == INGEST_DICOMS + INGEST_DUPLICATES, f"{len(hashes)} DICOMs hashed")
+    check(len(set(hashes.values())) == INGEST_DICOMS and len(curated) == INGEST_DICOMS,
+          f"dedup kept {len(curated)} of {len(set(hashes.values()))} distinct images")
+    reader = StoreReader(store)
+    imgs = [reader.image(i) for i in range(len(reader))]
+    reader.close()
+    check(len(imgs) == INGEST_DICOMS and all(im.shape == (INGEST_IMAGE_SIZE, INGEST_IMAGE_SIZE, 1) for im in imgs),
+          "store images of the wrong count or shape")
+    with open(stats_json) as f:
+        stats = _json.load(f)
+    check(all(math.isfinite(v) for v in stats["mean"] + stats["std"]) and 0 < stats["mean"][0] < 255,
+          f"bad store statistics {stats}")
+    n_slices = len(os.listdir(os.path.join(slices, "images")))
+    check(n_slices == INGEST_VOLUMES * INGEST_VOLUME[2], f"{n_slices} slices")
+    with open(os.path.join(out, "seg", "liver_manifest.json")) as f:
+        seg_counts = _json.load(f)["counts"]
+    check(sum(seg_counts.values()) == n_slices, f"seg stores hold {seg_counts}")
+    masks = StoreReader(os.path.join(out, "seg", f"liver_{next(iter(seg_counts))}_masks.mis"))
+    check(set(np.unique(masks.image(INGEST_VOLUME[2] // 2))) <= {0, 1}, "seg masks are not 0/1")
+    masks.close()
+    phase("ingest", opencv=libs.state["cv2"], pil=libs.state["PIL"], procs=INGEST_PROCS, start_method="spawn",
+          write_inputs_s=round(write_s, 2), **{f"{k}_s": v for k, v in seconds.items()},
+          dicoms=len(hashes), curated=len(curated), store_images=len(imgs), stats=stats, slices=n_slices,
+          seg_counts=seg_counts, kernel_launches=launches,
+          **{k: round(v, 3) for k, v in timing.items()}, card=repr(card))
+    return raw
+
+
+def run_parity_harness(torch, fa, workdir: str, raw: dict, card: str) -> tuple:
+    """``mis-parity-torch`` at the canonical width on the ingest phase's raw
+    data, cv2 and PIL absent or blocked: every stage, a report with both
+    inits' test Dice in [0, 1], then a second call that re-runs nothing.
+    Then the kernel against its plain version at the pretrain's shape (a
+    batch of the harness's own 224² store). Returns the kernel's launches in
+    the harness and the pretrain-shape record."""
+    import json as _json
+
+    from medical_image_segmentation_tpu_torch.data import datamodules as dm_mod
+    from medical_image_segmentation_tpu_torch.data.store import StoreReader
+    from medical_image_segmentation_tpu_torch.eval import parity
+
+    ws = os.path.join(workdir, "parity")
+    argv = ["--workdir", ws, "--dicom_dirs", raw["dicoms"], "--decathlon_images", raw["images"],
+            "--decathlon_labels", raw["labels"], "--val_png_dir", raw["val"], "--num_workers", "8",
+            "--num_processes", str(INGEST_PROCS), "--device", PARITY_DEVICE, *PARITY_FLAGS]
+    with blocked_image_libraries(workdir) as libs:
+        fa.fused_two_view_augment.launches = 0
+        t0 = time.time()
+        check(parity.main(argv) == 0, "mis-parity-torch failed")
+        wall = time.time() - t0
+        launches = fa.fused_two_view_augment.launches
+        with open(os.path.join(ws, "parity_report.json")) as f:
+            report = _json.load(f)
+        t0 = time.time()
+        check(parity.main(argv) == 0, "mis-parity-torch failed on its second call")
+        again_s = time.time() - t0
+        with open(os.path.join(ws, "parity_report.json")) as f:
+            report2 = _json.load(f)
+    check(launches >= 1, f"two_view_augment launched {launches} times in the pretrain stage")
+    check(fa.fused_two_view_augment.launches == launches, "the second call launched the kernel")
+    check(report2["stage_seconds"] == {} and report2["finetune"] == report["finetune"],
+          f"the second call re-ran {sorted(report2['stage_seconds'])}")
+    dice = {r["init"]: r.get("test/dice") for r in report["finetune"]}
+    check(set(dice) == {"scratch", "ssl"} and all(d is not None and 0.0 <= d <= 1.0 for d in dice.values()),
+          f"test Dice {dice}")
+    stages = report["stage_seconds"]
+    check(set(stages) >= {"scan", "curate", "store", "stats", "val_store", "val_stats", "pretrain", "slice",
+                          "splits", "seg_scratch_100pct", "seg_ssl_100pct"}, f"stages run {sorted(stages)}")
+    ds = report["dataset_stats"]
+
+    # the kernel at the pretrain's shape: a batch of the harness's own store
+    import numpy as np
+
+    reader = StoreReader(os.path.join(ws, "radiology_train.mis"))
+    batch = np.stack([reader.image(i) for i in range(min(64, len(reader)))])
+    reader.close()
+    record = {}
+    if PARITY_DEVICE == "cuda":
+        rad = dm_mod.get_datamodule("RADIOLOGY_1M")()
+        c1, c2 = rad.view_configs()
+        imgs = torch.from_numpy(batch).cuda()
+        b, h, w = imgs.shape[:3]
+        params = fa.sample_view_params(torch.Generator(device="cuda").manual_seed(3), b, h, w, c1, c2)
+        mean, std = tuple(rad.train_mean), tuple(rad.train_std)
+        got = fa.fused_two_view_augment(imgs, c1, c2, mean, std, torch.bfloat16, params=params)
+        want = fa.two_view_augment_reference(params, imgs, c1.out_size, mean, std, c1.value_max,
+                                             dtype=torch.bfloat16)
+        ulp = max(bf16_ulps(g, r) for g, r in zip(got, want))
+        check(ulp <= 1, f"pretrain shape: kernel and plain version differ by {ulp} bf16 ulp")
+        kernel_ms = cold_ms(lambda: fa.fused_two_view_augment(imgs, c1, c2, mean, std, torch.bfloat16,
+                                                             params=params), 20)
+        plain_ms = cold_ms(lambda: fa.two_view_augment_reference(params, imgs, c1.out_size, mean, std,
+                                                                c1.value_max, dtype=torch.bfloat16), 5)
+        bounds = kernel_bounds(torch, fa, params, imgs, c1.out_size, torch.bfloat16)
+        record = dict(pretrain_shape=tuple(imgs.shape), pretrain_max_bf16_ulp=ulp,
+                      pretrain_max_abs_err=max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, want)),
+                      pretrain_kernel_ms=kernel_ms, pretrain_plain_ms=plain_ms,
+                      pretrain_bound_ms=bounds["bound_us"] / 1000.0)
+        fa.fused_two_view_augment.launches = launches  # the comparison's launches do not count
+    phase("parity", opencv=libs.state["cv2"], pil=libs.state["PIL"], device=PARITY_DEVICE, wall_s=round(wall, 2),
+          second_call_s=round(again_s, 2), stage_seconds=stages, measured_mean=ds["measured_mean"],
+          measured_std=ds["measured_std"], val_mean=ds.get("val_measured_mean"), val_std=ds.get("val_measured_std"),
+          ssl_loss=report["ssl"].get("loss"), dice=dice, kernel_launches=launches, **record, card=repr(card))
+    return launches, record
+
+
 VOL_DEVICE = "cuda"
 VOL_FEATURES = (32, 64, 128, 256)
 VOL_SIZE, VOL_CROP, VOL_BATCH = (64, 96, 96), (32, 64, 64), 4
@@ -2005,6 +2331,12 @@ def main(argv=None) -> int:
             run_profile(torch, fa, workdir, card)
         run_remat(torch, fa, card)
         run_hbm(torch, fa, card)
+        # the data-curation path (no kernel lies on it), then the parity
+        # harness, whose pretrain stage launches the kernel
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
+            raw = run_ingest(torch, fa, workdir, card)
+            ingest_launches = fa.fused_two_view_augment.launches
+            parity_launches, _ = run_parity_harness(torch, fa, workdir, raw, card)
         # the volumetric path: no TPU kernel lies on it, so none is launched
         fa.fused_two_view_augment.launches = 0
         run_vol_parity(torch)
@@ -2028,7 +2360,9 @@ def main(argv=None) -> int:
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches,
                                      "launches_volumetric_path": vol_launches,
-                                     "launches_serving_path": serving_launches, **kernel_record}])
+                                     "launches_serving_path": serving_launches,
+                                     "launches_ingest_path": ingest_launches,
+                                     "launches_parity_path": parity_launches, **kernel_record}])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -11,7 +11,9 @@ Parity with the reference `DecathlonDataset`
 - masks binarized (>0 → 1.0).
 
 Host work is limited to decode + resize to the training resolution
-(bilinear image / NEAREST mask — `lightning_module.py:694-699`); paired
+(bilinear image / NEAREST mask — `lightning_module.py:694-699`), with
+OpenCV where it imports and otherwise through ``utils/imageio.py`` and
+``utils/resize.py`` to the same pixels; paired
 random flips, color jitter and normalization run on-device
 (`ops/augment.py::segmentation_augment`).
 """
@@ -24,19 +26,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-
-def extract_id(filename: str) -> str:
-    """``la_003_42.png`` → ``la_003`` (strip the slice index).
-
-    NIfTI volumes are their own id: ``la_003.nii.gz`` → ``la_003``. A copy
-    of ``data/ingest/create_splits.py:24-35`` of the JAX package, whose
-    ingest CLIs the port does not carry.
-    """
-    stem = os.path.basename(filename)
-    if stem.endswith(".nii") or stem.endswith(".nii.gz"):
-        return stem.split(".nii")[0]
-    stem = stem.split(".png")[0]
-    return stem.rsplit("_", 1)[0]
+from medical_image_segmentation_tpu_torch.data.ingest.create_splits import extract_id  # noqa: F401 (re-exported)
+from medical_image_segmentation_tpu_torch.utils.imageio import read_image
+from medical_image_segmentation_tpu_torch.utils.resize import resize
 
 
 class DecathlonDataset:
@@ -69,11 +61,9 @@ class DecathlonDataset:
         return len(self.names)
 
     def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
-        import cv2
-
         name = self.names[i]
-        img = cv2.imread(os.path.join(self.images_dir, name), cv2.IMREAD_GRAYSCALE)
-        msk = cv2.imread(os.path.join(self.masks_dir, name), cv2.IMREAD_GRAYSCALE)
+        img = read_image(os.path.join(self.images_dir, name), gray=True)
+        msk = read_image(os.path.join(self.masks_dir, name), gray=True)
         if img is None or msk is None:
             raise IOError(f"unreadable slice pair {name}")
         return img, (msk > 0).astype(np.uint8)
@@ -122,15 +112,13 @@ class DecathlonLoader:
         return n // self.batch_size if drop else -(-n // self.batch_size)
 
     def _load_batch(self, idxs: np.ndarray):
-        import cv2
-
         s = self.image_size
         imgs = np.empty((len(idxs), s, s, 1), np.uint8)
         msks = np.empty((len(idxs), s, s, 1), np.float32)
         for j, i in enumerate(idxs):
             img, msk = self.ds[int(i)]
-            imgs[j, :, :, 0] = cv2.resize(img, (s, s), interpolation=cv2.INTER_LINEAR)
-            msks[j, :, :, 0] = cv2.resize(msk, (s, s), interpolation=cv2.INTER_NEAREST)
+            imgs[j, :, :, 0] = resize(img, (s, s), "linear")
+            msks[j, :, :, 0] = resize(msk, (s, s), "nearest")
         return imgs, msks
 
     def _index_batches(self):

@@ -30,9 +30,10 @@ encoding rules:
   status in the ingest tools rather than a crash (matching the reference's
   per-file fault tolerance, `create_subset.py:197-241`).
 
-A copy of the JAX package's ``data/dicom.py`` for the port's readers. The
-port carries no JPEG 2000 encoder, so ``write_dicom`` raises on that one
-transfer syntax.
+A copy of the JAX package's ``data/dicom.py`` for the port's readers and
+writers. Baseline JPEG frames go through OpenCV where it imports and
+otherwise through ``utils/jpeg.py`` (one component); lossy JPEG 2000 needs
+PIL, JPEG 2000 lossless uses ``data/jpeg2000_encode.py``.
 """
 
 from __future__ import annotations
@@ -550,16 +551,19 @@ def write_dicom(
                 payload = jpeg_ls_encode(
                     fr, near=0 if ts == JPEG_LS_LOSSLESS else 2, precision=bits)
             elif ts == JPEG_2000_LOSSLESS:
-                # the port reads JPEG 2000 but carries no encoder: only the
-                # JAX package's ingest tooling writes such files
-                raise DicomError("this package does not write JPEG 2000 lossless DICOM; "
-                                 "use medical_image_segmentation_tpu's writer")
+                from medical_image_segmentation_tpu_torch.data.jpeg2000_encode import j2k_encode
+
+                payload = j2k_encode(fr)
             elif ts == JPEG_2000:
                 # lossy (.91) fixtures only: our encoder is lossless-profile
                 # (reversible 5/3); use PIL/OpenJPEG's irreversible 9/7 here
                 import io as _io
 
-                from PIL import Image as _PILImage
+                try:
+                    from PIL import Image as _PILImage
+                except ImportError:
+                    raise DicomError("writing lossy JPEG 2000 DICOM needs PIL (OpenJPEG), which is not "
+                                     "installed; JPEG 2000 lossless needs nothing") from None
 
                 buf = _io.BytesIO()
                 try:
@@ -570,14 +574,13 @@ def write_dicom(
                 except Exception as e:
                     raise DicomError(f"JPEG 2000 encode failed: {e}") from e
                 payload = buf.getvalue()
-            else:  # JPEG_BASELINE
-                import cv2
+            else:  # JPEG_BASELINE: OpenCV's bytes, or the same bytes from utils/jpeg.py (gray)
+                from medical_image_segmentation_tpu_torch.utils.jpeg import JpegError, encode_jpeg
 
-                ok, buf = cv2.imencode(".jpg", fr.astype(np.uint8),
-                                       [cv2.IMWRITE_JPEG_QUALITY, 95])
-                if not ok:
-                    raise DicomError("baseline JPEG encode failed")
-                payload = buf.tobytes()
+                try:
+                    payload = encode_jpeg(fr.astype(np.uint8), 95)
+                except JpegError as e:
+                    raise DicomError(f"baseline JPEG encode failed: {e}") from e
             if len(payload) % 2:
                 payload += b"\x00"
             frags.append(payload)

@@ -578,9 +578,17 @@ def jpeg_lossless_decode(data: bytes) -> np.ndarray:
 
 
 def jpeg_baseline_decode(data: bytes) -> np.ndarray:
-    """8-bit baseline JPEG via OpenCV (libjpeg-turbo)."""
-    import cv2
+    """8-bit baseline JPEG via OpenCV (libjpeg-turbo), or without OpenCV
+    through ``utils/jpeg.py`` for one-component frames (the same pixels)."""
+    try:
+        import cv2
+    except ImportError:
+        from medical_image_segmentation_tpu_torch.utils.jpeg import JpegError, decode_jpeg_numpy
 
+        try:
+            return decode_jpeg_numpy(data)
+        except JpegError as e:
+            raise CodecError(f"JPEG baseline decode failed: {e}") from e
     arr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
     if arr is None:
         raise CodecError("JPEG baseline decode failed")

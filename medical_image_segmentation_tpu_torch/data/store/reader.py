@@ -4,6 +4,9 @@ This is the fallback/reference implementation; the hot path is the C++
 loader (`csrc/mis_loader.cpp`) which shares the same on-disk format. The
 mmap + page-cache behavior is the analogue of FFCV's ``os_cache=True``
 (`lightning_module.py:141-151`).
+
+PNG and JPEG payloads decode with OpenCV where it imports and otherwise
+with ``utils/png.py`` and ``utils/jpeg.py`` (gray JPEG), to the same pixels.
 """
 
 from __future__ import annotations
@@ -15,12 +18,16 @@ import numpy as np
 
 from medical_image_segmentation_tpu_torch.data.store.format import (
     CODEC_JLS,
+    CODEC_PNG,
     CODEC_RAW,
     HEADER_SIZE,
     RECORD_SIZE,
     SampleRecord,
     StoreHeader,
 )
+from medical_image_segmentation_tpu_torch.utils.jpeg import decode_jpeg_numpy
+from medical_image_segmentation_tpu_torch.utils.png import decode_png
+from medical_image_segmentation_tpu_torch.utils.resize import cv2_or_none
 
 
 class StoreReader:
@@ -68,18 +75,21 @@ class StoreReader:
                 raise ValueError(f"sample {i}: JLS precision mismatch "
                                  f"({img.dtype} payload in a {np.dtype(dtype)} store)")
             return img
-        import cv2
-
-        buf = np.frombuffer(self._mm, np.uint8, r.length, r.offset)
-        img = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
-        if img is None:
-            raise ValueError(f"decode failed for sample {i}")
+        cv2 = cv2_or_none()
+        if cv2 is None:  # the numpy codecs: PNG in its file's RGB order, gray JPEG
+            data = self.payload(i)
+            img = decode_png(data) if r.codec == CODEC_PNG else decode_jpeg_numpy(data)
+        else:
+            buf = np.frombuffer(self._mm, np.uint8, r.length, r.offset)
+            img = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+            if img is None:
+                raise ValueError(f"decode failed for sample {i}")
+            if img.ndim == 3 and img.shape[-1] == 3:
+                img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)  # payloads are RGB (see writer._encode)
         if img.dtype != dtype:
             raise ValueError(f"sample {i}: {img.dtype} payload in a {np.dtype(dtype)} store")
         if img.ndim == 2:
             img = img[..., None]
-        if img.shape[-1] == 3:
-            img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)  # payloads are RGB (see writer._encode)
         return img
 
     def __getitem__(self, i: int) -> Tuple[np.ndarray, int]:

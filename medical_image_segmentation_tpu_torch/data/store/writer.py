@@ -5,6 +5,10 @@ Capability parity with `ffcv.writer.DatasetWriter` as used by the reference
 consume an indexed dataset (``__getitem__``/``__len__`` returning an image
 array or (image, label)), optionally resize to ``max_resolution`` and
 JPEG-compress, write in parallel, produce one self-contained file.
+
+OpenCV encodes and resizes where it imports; elsewhere (the H100 machine)
+``utils/jpeg.py``, ``utils/png.py`` and ``utils/resize.py`` write the same
+JPEG bytes and the same pixels. A three-channel JPEG payload needs OpenCV.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ from medical_image_segmentation_tpu_torch.data.store.format import (
     SampleRecord,
     StoreHeader,
 )
+from medical_image_segmentation_tpu_torch.utils.jpeg import encode_jpeg_numpy
+from medical_image_segmentation_tpu_torch.utils.png import encode_png
+from medical_image_segmentation_tpu_torch.utils.resize import cv2_or_none, resize
 
 
 def _encode(img: np.ndarray, codec: int, quality: int) -> bytes:
@@ -43,10 +50,11 @@ def _encode(img: np.ndarray, codec: int, quality: int) -> bytes:
         # decoders derive the output dtype from the stream's precision, so
         # a dark u16 slice must still round-trip as uint16
         return jpeg_ls_encode(img, near=0, precision=16 if img.dtype == np.uint16 else 8)
-    import cv2
-
     if codec == CODEC_JPEG and img.dtype != np.uint8:
         raise ValueError("JPEG store payloads are 8-bit; use PNG/JLS/RAW for uint16")
+    cv2 = cv2_or_none()
+    if cv2 is None:  # the numpy codecs: the same pixels (JPEG: the same bytes), gray JPEG only
+        return encode_jpeg_numpy(img, quality) if codec == CODEC_JPEG else encode_png(img)
     # store payloads are RGB-ordered: cv2.imencode assumes BGR input, so
     # 3-channel images are swapped before encoding (the C++ loader decodes
     # with libjpeg/libpng straight to RGB; StoreReader swaps back after
@@ -68,10 +76,8 @@ def _maybe_resize(img: np.ndarray, max_resolution: Optional[int]) -> np.ndarray:
     m = max(h, w)
     if m <= max_resolution:
         return img
-    import cv2
-
     scale = max_resolution / m
-    return cv2.resize(img, (int(round(w * scale)), int(round(h * scale))), interpolation=cv2.INTER_AREA)
+    return resize(img, (int(round(w * scale)), int(round(h * scale))), "area")
 
 
 class StoreWriter:

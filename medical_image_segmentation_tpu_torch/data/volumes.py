@@ -3,9 +3,9 @@
 Port of ``data/volumes.py:35-208``, host code in numpy, so the arrays are
 the JAX package's element for element:
 
-- ``pair_scans_and_masks`` (``data/ingest/slice_decathlon.py:29-46``):
-  imagesTr/labelsTr matched by basename; a split JSON filters them by the
-  filename stem, the uid the 2D split files use;
+- ``pair_scans_and_masks`` (the port's ``data/ingest/slice_decathlon.py``,
+  one copy for both): imagesTr/labelsTr matched by basename; a split JSON
+  filters them by the filename stem, the uid the 2D split files use;
 - per-volume min-max normalization to 0..1, mask binarized ``!= 0``;
 - NIfTI (X, Y, Z) becomes (D=Z, H=X, W=Y, 1) float32; a 4-D volume takes
   channel 0;
@@ -26,21 +26,11 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from medical_image_segmentation_tpu_torch.data.ingest.slice_decathlon import (  # noqa: F401 (re-exported)
+    nifti_names,
+    pair_scans_and_masks,
+)
 from medical_image_segmentation_tpu_torch.data.nifti import read_nifti
-
-
-def nifti_names(directory: str) -> List[str]:
-    """The sorted ``.nii`` / ``.nii.gz`` file names of ``directory``,
-    hidden files left out."""
-    return sorted(f for f in os.listdir(directory)
-                  if (f.endswith(".nii") or f.endswith(".nii.gz")) and not f.startswith("."))
-
-
-def pair_scans_and_masks(images_dir: str, labels_dir: str) -> List[Tuple[str, str]]:
-    """Match imagesTr/labelsTr files by basename (Decathlon layout)."""
-    masks = set(nifti_names(labels_dir))
-    return [(os.path.join(images_dir, f), os.path.join(labels_dir, f))
-            for f in nifti_names(images_dir) if f in masks]
 
 
 def center_fit(vol: np.ndarray, target: Tuple[int, int, int]) -> np.ndarray:

@@ -1,11 +1,14 @@
 """A PNG writer and reader on ``zlib``, ``struct`` and numpy.
 
 ``encode_png`` is the port's one image writer: the masks and overlays of
-``mis-predict-torch`` and the prediction grid of
-``mis-train-segmentation-torch`` (the JAX package writes them with OpenCV,
-``train/predict.py:104-116`` and ``utils/viz.py:43-77``). It writes 8-bit
-gray or RGB; every row gets filter type 0; the file is the signature, IHDR,
-one IDAT and IEND.
+``mis-predict-torch``, the prediction grid of
+``mis-train-segmentation-torch`` and, where OpenCV does not import, the
+curated 16-bit subset and the Decathlon slices of the ingest CLIs (the JAX
+package writes them with OpenCV, ``train/predict.py:104-116``,
+``utils/viz.py:43-77``, ``data/ingest/create_subset.py:170-187``). It
+writes 8-bit gray or RGB and 16-bit gray (big-endian samples); every row
+gets filter type 0; the file is the signature, IHDR, one IDAT and IEND.
+``png_size`` reads (height, width) from the IHDR alone.
 
 ``decode_png`` reads any non-interlaced PNG (all five row filters, every
 bit depth, gray, gray+alpha, RGB, RGBA and palette), so that
@@ -21,6 +24,10 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+class PngUnsupported(ValueError):
+    """A well-formed PNG that ``decode_png`` does not read (interlaced)."""
 _COLOR_TYPE = {1: 0, 3: 2}  # channels → PNG colour type (gray, RGB)
 
 
@@ -29,18 +36,22 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray, level: int = 1) -> bytes:
-    """PNG bytes of a uint8 (H, W) gray, (H, W, 1) gray or (H, W, 3) RGB image."""
+    """PNG bytes of a uint8 (H, W) gray, (H, W, 1) gray or (H, W, 3) RGB
+    image, or of a uint16 gray one (bit depth 16)."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"encode_png takes uint8, got {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"encode_png takes uint8 or uint16, got {img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     if img.ndim != 3 or img.shape[2] not in _COLOR_TYPE:
         raise ValueError(f"encode_png takes (H, W), (H, W, 1) or (H, W, 3), got {img.shape}")
+    if img.dtype == np.uint16 and img.shape[2] != 1:
+        raise ValueError(f"encode_png writes 16 bits for gray images only, got {img.shape}")
     h, w, c = img.shape
-    rows = np.zeros((h, 1 + w * c), np.uint8)  # column 0: filter type 0 (none)
-    rows[:, 1:] = img.reshape(h, w * c)
-    header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
+    samples = img.astype(">u2").view(np.uint8) if img.dtype == np.uint16 else img
+    rows = np.zeros((h, 1 + w * c * img.itemsize), np.uint8)  # column 0: filter type 0 (none)
+    rows[:, 1:] = samples.reshape(h, -1)
+    header = struct.pack(">IIBBBBB", w, h, 8 * img.itemsize, _COLOR_TYPE[c], 0, 0, 0)
     return (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
             + _chunk(b"IEND", b""))
 
@@ -48,6 +59,16 @@ def encode_png(img: np.ndarray, level: int = 1) -> bytes:
 def write_png(path: str, img: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(img))
+
+
+def png_size(path: str) -> tuple:
+    """(height, width) of a PNG file from its IHDR chunk, the rest unread."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
 
 
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type → samples a pixel
@@ -91,7 +112,8 @@ def decode_png(data: bytes) -> np.ndarray:
     (H, W, 3) RGB or (H, W, 4) RGBA, uint8, or uint16 for 16-bit files. A
     palette file comes back as RGB (RGBA when it has a tRNS chunk); gray of
     1, 2 or 4 bits is scaled to 0..255, as libpng's expansion does. Raises
-    ValueError on an interlaced (Adam7) file and on anything malformed."""
+    PngUnsupported (a ValueError) on an interlaced (Adam7) file and
+    ValueError on anything malformed."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG")
     pos, header, idat, palette, trns = 8, None, [], None, None
@@ -113,7 +135,7 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG without an IHDR chunk")
     w, h, depth, ctype, compression, filtering, interlace = header
     if interlace:
-        raise ValueError("decode_png does not read interlaced (Adam7) PNGs; re-save the file without interlace")
+        raise PngUnsupported("decode_png does not read interlaced (Adam7) PNGs; re-save the file without interlace")
     if ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or compression or filtering:
         raise ValueError(f"unsupported PNG header {header}")
     c = _CHANNELS[ctype]

@@ -1,6 +1,8 @@
-"""Prediction/truth overlay grid. Port of ``utils/viz.py:54-77`` onto the
-port's PNG writer (``utils/png.py``); the tiling helpers are copies of the
-JAX package's numpy code (``utils/viz.py:21-40``)."""
+"""Image grids and the prediction/truth overlay grid. Port of
+``utils/viz.py:43-77``: ``save_image_grid`` writes with OpenCV where it
+imports and otherwise with the port's PNG writer (``utils/imageio.py``),
+the overlay always with ``utils/png.py``; the tiling helpers are copies of
+the JAX package's numpy code (``utils/viz.py:21-40``)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import os
 
 import numpy as np
 
+from medical_image_segmentation_tpu_torch.utils.imageio import write_image
 from medical_image_segmentation_tpu_torch.utils.png import write_png
 
 
@@ -31,6 +34,15 @@ def _normalize_to_uint8(images: np.ndarray) -> np.ndarray:
     if hi > lo:
         img = (img - lo) / (hi - lo)
     return (img * 255).astype(np.uint8)
+
+
+def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
+    """images: (B,H,W,C) any-range floats or uint8, tiled into one PNG."""
+    if images.ndim == 3:
+        images = images[..., None]
+    grid = _to_grid(_normalize_to_uint8(images), nrow)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    write_image(path, grid)
 
 
 def save_combined_image_grid(images: np.ndarray, pred_masks: np.ndarray, masks: np.ndarray, path: str,

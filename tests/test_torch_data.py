@@ -204,10 +204,16 @@ def test_read_dicom_matches(tmp_path, pixels, syntax):
     np.testing.assert_array_equal(got, arr)
 
 
-def test_dicom_writer_refuses_jpeg2000(tmp_path):
+def test_dicom_writer_refuses_jpeg2000(tmp_path, monkeypatch):
+    """Lossy JPEG 2000 needs PIL and refuses by name without it; lossless
+    JPEG 2000 now writes through the port's own encoder and needs nothing."""
+    monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(tdicom.DicomError, match="JPEG 2000"):
         tdicom.write_dicom(str(tmp_path / "x.dcm"), np.zeros((4, 4), np.uint16),
-                           transfer_syntax=tdicom.JPEG_2000_LOSSLESS)
+                           transfer_syntax=tdicom.JPEG_2000)
+    arr = np.arange(16, dtype=np.uint16).reshape(4, 4) * 97
+    tdicom.write_dicom(str(tmp_path / "y.dcm"), arr, transfer_syntax=tdicom.JPEG_2000_LOSSLESS)
+    np.testing.assert_array_equal(tdicom.read_dicom(str(tmp_path / "y.dcm")).pixel_array, arr)
 
 
 def test_registry_lookups_match():
@@ -262,6 +268,12 @@ def test_port_imports_nothing_of_the_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "new = ['data.ingest.' + n for n in ('utils', 'create_subset', 'compute_stats', 'create_store',\n"
+        "       'slice_decathlon', 'create_splits', 'create_seg_store', 'show_store', 'convert_datasets', 'tcia')]\n"
+        "new += ['data.datasets', 'data.jpeg2000_encode', 'utils.plot_metrics', 'eval.parity', 'utils.resize',\n"
+        "        'utils.jpeg', 'utils.imageio']\n"
+        "missing = [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'medical_image_segmentation_tpu'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
