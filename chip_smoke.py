@@ -32,6 +32,30 @@ exits non-zero and prints no result:
    bias, which without labels has no gradient and no decay.
 7. step: steady-state BYOL ms/step on a device-resident batch, views from
    the kernel and from the plain version.
+7b. dist: training across several processes on the one card.
+   - dist_<case>: one spawn of 2 ranks joined over gloo on ``cuda:0`` (NCCL
+     refuses two ranks on one device) runs two f32 steps (TF32 off) of
+     BYOL (ResNet-18, hidden 4096, projection 256, global batch 256 of
+     112² views with labels), BYOL with the heads split over the 2 ranks
+     (``tp``: 2048 hidden units a rank), the U-Net (224², global batch 64)
+     and the 3D U-Net ((32, 64, 128, 256), 32×64×64, global batch 4) with
+     GroupNorm and with BatchNorm, each rank on its rows; this process
+     runs the same steps on the whole batch. Step-1 losses within 1e-4,
+     parameters and statistics per group within three times the one-process
+     step's own spread under a 1e-6 change of the input (never looser than
+     1e-3 is needed), the ranks equal to the bit.
+   - dist_train: ``mis-train-ssl-torch`` at full width (global batch 256,
+     2 × 4 steps) in 2 gloo ranks: each rank prints its ``process r/2``
+     line, launches the kernel once a step and once for the memory guard's
+     probe, ends with the other's parameters to the bit, and holds the
+     kernel at its batch of 128 against the plain version (1 bf16 ulp);
+     only rank 0 writes the checkpoint.
+   - dist_nccl: the same run in this process, plain and then as the one
+     rank of an NCCL group (every collective of the path through NCCL):
+     the probe's and first step's losses equal, the parameters within 1e-3.
+   Prints ms a step of 1 rank, of the NCCL rank and of 2 gloo ranks; two
+   ranks sharing a card all-reduce through the host, so the last is no
+   measure of multi-card scaling.
 8. seg_train: writes paired raw 224² stores (512 train, 128 val, 128 test
    slices with disk masks) and runs the segmentation trainer's entry point
    at full width (resnet18 U-Net, decoder (256,128,64,32,16), batch 64,
@@ -167,8 +191,10 @@ kernel lies on this path, and the run fails if one is launched in it.
 TF32 is off for both cuDNN and cuBLAS, so every f32 op here is full f32;
 the training steps run in bf16 under autocast, which TF32 does not touch.
 The device line also says whether ``triton`` imports (information only: the
-port needs none). The last lines are the card, the kernels' JSON record and
-``{"ok": true, "device": {...}}``. The run also fails if the port loaded
+port needs none). The last lines are the card, the kernels' JSON record (with
+``launches_data_parallel_path``, the kernel launches of each rank in
+dist_train, and ``launches_nccl_path``) and ``{"ok": true, "device":
+{...}}``. The run also fails if the port loaded
 ``jax`` or any module of the JAX package.
 
     python3 chip_smoke.py --ab-old-source OLD.cu
@@ -2268,6 +2294,410 @@ def run_seg3d_step(torch, card: str) -> None:
     phase("seg3d_step", features=VOL_FEATURES, crop=VOL_CROP, **fields, card=repr(card))
 
 
+# ------------------------------------------------------------ several ranks
+
+DIST_DEVICE = "cuda"
+DIST_RANKS = 2
+DIST_BYOL = dict(arch="resnet18", in_channels=1, hidden_dim=4096, proj_dim=256, num_classes=10, learning_rate=0.1,
+                 warmup_epochs=0, max_epochs=2, total_steps=2, steps_per_epoch=1)
+DIST_BYOL_BATCH, DIST_VIEW = 256, 112
+DIST_SEG = dict(arch="resnet18", learning_rate=0.5, warmup_epochs=0, max_epochs=2, min_lr=0.01, steps_per_epoch=1)
+DIST_SEG_BATCH, DIST_SEG_SIZE = 64, 224
+DIST_SEG3D = dict(features=(32, 64, 128, 256), learning_rate=0.5, warmup_epochs=0, max_epochs=2, min_lr=0.01,
+                  steps_per_epoch=1)
+DIST_SEG3D_BATCH, DIST_SEG3D_CROP = 4, (32, 64, 64)
+DIST_CASES = ("byol", "tp", "seg", "seg3d_group", "seg3d_batch")
+DIST_TRAIN_EPOCHS, DIST_TRAIN_STEPS = 2, 4
+
+
+def dist_batches(torch, case: str, device, scale: float = 1.0):
+    """Two global f32 batches of ``case``, made from a seed on the CPU (the
+    same in every process), the first input scaled by ``scale``."""
+    import numpy as np
+
+    gen = torch.Generator().manual_seed(11)
+    if case in ("byol", "tp"):
+        shape = (DIST_BYOL_BATCH, DIST_VIEW, DIST_VIEW, 1)
+        steps = [(torch.randn(shape, generator=gen), torch.randn(shape, generator=gen),
+                  torch.randint(0, 10, (DIST_BYOL_BATCH,), generator=gen)) for _ in range(2)]
+    elif case == "seg":
+        rng = np.random.default_rng(5)
+        steps = []
+        for _ in range(2):
+            imgs, masks = zip(*disk_slices(rng, DIST_SEG_BATCH, DIST_SEG_SIZE))
+            x = (np.stack(imgs)[..., None].astype(np.float32) - 110.0) / 60.0
+            steps.append((torch.from_numpy(x), torch.from_numpy(np.stack(masks)[..., None].astype(np.float32))))
+    else:
+        rng = np.random.default_rng(6)
+        steps = []
+        for _ in range(2):
+            pairs = [sphere_volume(rng, DIST_SEG3D_CROP) for _ in range(DIST_SEG3D_BATCH)]
+            vols = np.stack([(v - v.min()) / float(v.max() - v.min()) for v, _ in pairs]).astype(np.float32)
+            masks = np.stack([m for _, m in pairs]).astype(np.float32)
+            steps.append((torch.from_numpy((vols[..., None] - 0.2) / 0.2), torch.from_numpy(masks[..., None])))
+    return [((b[0] * scale).to(device),) + tuple(t.to(device) for t in b[1:]) for b in steps]
+
+
+def dist_case(torch, case: str, mesh, device, scale: float = 1.0) -> dict:
+    """Two f32 steps of ``case`` from the seeded initial weights, this
+    rank's rows of the global batches (all of them without a mesh): the
+    losses and the whole state on the CPU."""
+    from medical_image_segmentation_tpu_torch.parallel.mesh import data_rows
+    from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+    from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
+
+    if case in ("byol", "tp"):
+        task = BYOLTask(dtype=torch.float32, device=device, mesh=mesh, **DIST_BYOL)
+    elif case == "seg":
+        task = SegmentationTask(dtype=torch.float32, device=device, mesh=mesh, **DIST_SEG)
+    else:
+        task = Segmentation3DTask(norm=case.split("_")[1], dtype=torch.float32, device=device, mesh=mesh,
+                                  **DIST_SEG3D)
+    task.init(0)
+    losses = []
+    for batch in dist_batches(torch, case, device, scale):
+        rows = data_rows(mesh, batch[0].shape[0])
+        m = task.train_step(*(t[rows] for t in batch))
+        losses.append(float(m["loss" if case in ("byol", "tp") else "train/loss"]))
+    state = task.state_dict()
+    sides = ("online", "target") if case in ("byol", "tp") else ("model",)
+    return {"losses": losses, "state": {side: {k: v.detach().cpu() for k, v in state[side].items()}
+                                        for side in sides}}
+
+
+def dist_config() -> dict:
+    """The module's DIST_* settings, which a spawned rank takes over."""
+    return {k: v for k, v in globals().items() if k.startswith("DIST_") and k.isupper()}
+
+
+def _dist_rank(rank: int, port: int, out_path: str, config: dict) -> None:
+    """One rank of the step cases: joins a gloo group of DIST_RANKS ranks on
+    the one card and runs every case (the ``tp`` case on a (data=1,
+    model=DIST_RANKS) mesh)."""
+    globals().update(config)
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(DIST_RANKS), "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": str(DIST_RANKS), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    sys.path.insert(0, ROOT)
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from medical_image_segmentation_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh, shutdown_distributed,
+    )
+
+    try:
+        proc = initialize_distributed(DIST_DEVICE)
+        dp = make_mesh(device=proc.device)
+        tp = make_mesh(("data", "model"), (1, DIST_RANKS), device=proc.device)
+        out = {"backend": proc.backend, "device": str(proc.device), "sharing": proc.ranks_per_device}
+        for case in DIST_CASES:
+            t0 = time.time()
+            out[case] = dist_case(torch, case, tp if case == "tp" else dp, proc.device)
+            out[case]["seconds"] = time.time() - t0
+        torch.save(("ok", out), out_path)
+    except BaseException:
+        import traceback
+
+        torch.save(("error", traceback.format_exc()), out_path)
+    finally:
+        shutdown_distributed()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _group_err(a, b, keys) -> float:
+    return (max(float((a[k].double() - b[k].double()).abs().max()) for k in keys)
+            / max(float(b[k].abs().max()) for k in keys))
+
+
+def run_dist_steps(torch, workdir: str, card: str) -> None:
+    """The step cases in DIST_RANKS gloo ranks sharing the card, against one
+    process on the whole batch. Parameters and statistics per group within
+    three times the one-process step's own spread under a 1e-6 change of
+    the input, and never looser than 1e-3 is needed (the card/CPU parity
+    phases' rule: the ranks' convolutions run at half the batch, where
+    cuDNN may sum in another order, and BatchNorm biases have gradients of
+    rounding noise); step-1 losses to 1e-4; the ranks equal to the bit."""
+    import multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    paths = [os.path.join(workdir, f"dist_rank{r}.pt") for r in range(DIST_RANKS)]
+    t0 = time.time()
+    procs = [ctx.Process(target=_dist_rank, args=(r, port, paths[r], dist_config())) for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    # the one-process references meanwhile (the ranks' host-side all-reduces leave the card idle)
+    refs = {}
+    for case in DIST_CASES:
+        if case == "tp":
+            continue  # the tensor-parallel step is held against the replicated BYOL step
+        refs[case] = (dist_case(torch, case, None, DIST_DEVICE), dist_case(torch, case, None, DIST_DEVICE, 1 + 1e-6))
+    torch.cuda.empty_cache()
+    for p in procs:
+        p.join(600)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    check(not alive, f"{len(alive)} dist ranks did not finish")
+    ranks = []
+    for r, path in enumerate(paths):
+        check(os.path.exists(path), f"dist rank {r} exited with code {procs[r].exitcode} and no result")
+        status, value = torch.load(path, weights_only=False)
+        check(status == "ok", f"dist rank {r} failed:\n{value}")
+        ranks.append(value)
+    ranks_s = time.time() - t0
+    on_card = DIST_DEVICE == "cuda"
+    check(all(r["backend"] == "gloo" and r["device"] == ("cuda:0" if on_card else DIST_DEVICE) and
+              r["sharing"] == (DIST_RANKS if on_card else 1) for r in ranks),
+          f"ranks ran on {[(r['backend'], r['device'], r['sharing']) for r in ranks]}")
+    for case in DIST_CASES:
+        one, spread = refs["byol" if case == "tp" else case]
+        fields = dict(ranks=DIST_RANKS, rank_seconds=round(ranks[0][case]["seconds"], 2),
+                      losses=ranks[0][case]["losses"], one_process_losses=one["losses"])
+        loss_rel = abs(ranks[0][case]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        check(loss_rel <= 1e-4, f"dist {case}: step-1 loss {ranks[0][case]['losses'][0]} vs {one['losses'][0]}")
+        fields["loss_rel"] = loss_rel
+        for side, sd in one["state"].items():
+            for r in ranks[1:]:
+                check(all(torch.equal(r[case]["state"][side][k], ranks[0][case]["state"][side][k]) for k in sd),
+                      f"dist {case}: the ranks' {side} states differ")
+            stats = [k for k in sd if "running_" in k]
+            for group, keys in (("params", [k for k in sd if k not in stats]), ("stats", stats)):
+                if not keys:
+                    continue
+                err = _group_err(ranks[0][case]["state"][side], sd, keys)
+                own = _group_err(spread["state"][side], sd, keys)
+                check(err <= max(1e-3, 3 * own), f"dist {case}: {side} {group} {err} (one-process spread {own})")
+                fields[f"{side}_{group}_rel"] = err
+                fields[f"{side}_{group}_spread"] = own
+        phase(f"dist_{case}", **fields)
+    phase("dist_steps", ranks=DIST_RANKS, backend="gloo", ranks_seconds=round(ranks_s, 2), card=repr(card))
+
+
+DIST_TRAIN_RUNNER = r"""
+import hashlib, json, os, sys, time
+root, out_path = sys.argv[1:3]
+sys.path.insert(0, root)
+import torch
+import chip_smoke as cs
+from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
+from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
+from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
+from medical_image_segmentation_tpu_torch.train import train_ssl
+
+try:
+    fa.fused_two_view_augment.launches = 0
+    t0 = time.time()
+    result = train_ssl.run(sys.argv[3:])
+    if result.task.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fa.fused_two_view_augment.launches
+    digest = hashlib.sha256()
+    state = result.task.state_dict()
+    for side in ("online", "target"):
+        for k, v in state[side].items():
+            digest.update(k.encode())
+            digest.update(v.detach().cpu().contiguous().numpy().tobytes())
+    # the kernel at this rank's shape against its plain version, then timed
+    dm = get_datamodule("RADIOLOGY_1M")()
+    cfg1, cfg2 = dm.view_configs()
+    rank = int(os.environ["RANK"])
+    gen = torch.Generator(device=result.task.device).manual_seed(100 + rank)
+    b = int(sys.argv[sys.argv.index("--batch_size") + 1]) // int(os.environ["WORLD_SIZE"])
+    imgs = torch.randint(0, 256, (b, 256, 256, 1), generator=gen, device=result.task.device, dtype=torch.uint8)
+    params = fa.sample_view_params(gen, b, 256, 256, cfg1, cfg2)
+    mean, std = tuple(dm.train_mean), tuple(dm.train_std)
+    got = fa.fused_two_view_augment(imgs, cfg1, cfg2, mean, std, torch.bfloat16, params=params)
+    want = fa.two_view_augment_reference(params, imgs, cfg1.out_size, mean, std, cfg1.value_max, dtype=torch.bfloat16)
+    ulps = max(cs.bf16_ulps(g, w) for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    kernel_ms = plain_ms = None
+    if imgs.is_cuda:
+        kernel_ms = cs.cold_ms(lambda: fa.fused_two_view_augment(imgs, cfg1, cfg2, mean, std, torch.bfloat16,
+                                                                   params=params), 20)
+        plain_ms = cs.cold_ms(lambda: fa.two_view_augment_reference(params, imgs, cfg1.out_size, mean, std,
+                                                                     cfg1.value_max, dtype=torch.bfloat16), 5)
+    bounds = cs.kernel_bounds(torch, fa, params, imgs, cfg1.out_size, torch.bfloat16)
+    steady = result.epochs[1:] or result.epochs
+    ms_step = 1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
+    out = {"ok": True, "rank": rank, "launches": launches, "steps": result.task.step, "digest": digest.hexdigest(),
+           "used_kernel": result.used_kernel, "losses": [e["loss"] for e in result.epochs], "wall_s": wall,
+           "ms_per_step": ms_step, "hbm": result.hbm, "kernel_batch": b, "kernel_max_bf16_ulp": ulps,
+           "kernel_max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": bounds["bound_us"] / 1000.0, "bound_by": bounds["bound_by"]}
+except BaseException:
+    import traceback
+    out = {"ok": False, "error": traceback.format_exc()}
+finally:
+    shutdown_distributed()
+with open(out_path, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def dist_train_argv(workdir: str, name: str) -> list:
+    return ["--device", DIST_DEVICE, "--dataset", "RADIOLOGY_1M", *SSL_WIDTH, "--batch_size", str(SSL_BATCH),
+            "--max_epochs", str(DIST_TRAIN_EPOCHS), "--limit_steps_per_epoch", str(DIST_TRAIN_STEPS),
+            "--warmup_epochs", "0", "--checkpoint_every_epochs", str(DIST_TRAIN_EPOCHS), "--val_every_epochs", "0",
+            "--num_workers", "4", "--seed", "0", "--log_dir", os.path.join(workdir, f"{name}_logs"),
+            "--checkpoint_dir", os.path.join(workdir, name)]
+
+
+def run_dist_train(torch, fa, workdir: str, card: str) -> list:
+    """``mis-train-ssl-torch`` at full width (global batch SSL_BATCH) in
+    DIST_RANKS gloo ranks on the card: the ranks end bit-equal, each
+    launched the kernel once a step and once for the memory guard's probe,
+    and each rank's kernel output at its batch equals the plain version
+    within 1 bf16 ulp. Returns the ranks' records."""
+    port = free_port()
+    argv = dist_train_argv(workdir, "dist_ssl")
+    outs = [os.path.join(workdir, f"dist_train{r}.json") for r in range(DIST_RANKS)]
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    procs = [subprocess.Popen([sys.executable, "-c", DIST_TRAIN_RUNNER, ROOT, outs[r], *argv], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env={**env, "RANK": str(r), "WORLD_SIZE": str(DIST_RANKS), "LOCAL_RANK": str(r),
+                                   "LOCAL_WORLD_SIZE": str(DIST_RANKS), "MASTER_ADDR": "127.0.0.1",
+                                   "MASTER_PORT": str(port)})
+             for r in range(DIST_RANKS)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=600)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    recs = []
+    for r, (p, path) in enumerate(zip(procs, outs)):
+        check(os.path.exists(path), f"dist train rank {r} exited with code {p.returncode}:\n{errs[r][-3000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        check(rec["ok"], f"dist train rank {r} failed:\n{rec.get('error')}")
+        check(f"process {r}/{DIST_RANKS}:" in errs[r] and "backend gloo" in errs[r],
+              f"rank {r} printed no gloo process line")
+        recs.append(rec)
+    steps = DIST_TRAIN_EPOCHS * DIST_TRAIN_STEPS
+    for rec in recs:
+        check(rec["used_kernel"], f"rank {rec['rank']} did not route the views through the kernel")
+        check(rec["steps"] == steps, f"rank {rec['rank']} ran {rec['steps']} steps")
+        check(rec["launches"] == steps + 1, f"rank {rec['rank']} launched the kernel {rec['launches']} times for "
+                                            f"{steps} steps and one guard probe")
+        check(rec["kernel_max_bf16_ulp"] <= 1, f"rank {rec['rank']}: kernel and plain differ by "
+                                               f"{rec['kernel_max_bf16_ulp']} bf16 ulp")
+        check(all(math.isfinite(x) for x in rec["losses"]), f"rank {rec['rank']}: losses {rec['losses']}")
+    check(len({rec["digest"] for rec in recs}) == 1, "the ranks' parameters differ")
+    check(sorted(os.listdir(os.path.join(workdir, "dist_ssl"))) == [f"{steps}.pt"],
+          f"checkpoints written: {os.listdir(os.path.join(workdir, 'dist_ssl'))}")
+    r0 = recs[0]
+    phase("dist_train", ranks=DIST_RANKS, steps=steps, launches=[r["launches"] for r in recs],
+          ms_per_step=[r["ms_per_step"] for r in recs], img_per_s=SSL_BATCH * 1000.0 / r0["ms_per_step"],
+          losses=r0["losses"], wall_s=[round(r["wall_s"], 2) for r in recs], hbm=r0["hbm"],
+          kernel_batch=r0["kernel_batch"], kernel_ms=[r["kernel_ms"] for r in recs],
+          kernel_plain_ms=[r["plain_ms"] for r in recs], kernel_bound_ms=r0["bound_ms"],
+          kernel_share_of_bound=r0["bound_ms"] / r0["kernel_ms"] if r0["kernel_ms"] else None,
+          kernel_max_bf16_ulp=[r["kernel_max_bf16_ulp"] for r in recs], card=repr(card))
+    return recs
+
+
+def run_dist_nccl(torch, fa, workdir: str, card: str) -> dict:
+    """The same run in this process, plain (no group) and then as the one
+    rank of an NCCL group, where every collective of the data-parallel
+    path (the gradient all-reduce, the metrics, the weights' broadcast, the
+    checkpoint barrier) runs through NCCL on the card. Both in one process,
+    so cuDNN's autotuner picks the same algorithms: the guard probe's and
+    the first step's losses must be equal (the same weights and batch), the
+    later ones within 1e-3 relative and the parameters within 1e-3 of the
+    largest (a backward convolution may sum in another order from run to
+    run; equal is expected). Returns ms a step of both."""
+    import torch.distributed as dist
+
+    from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
+    from medical_image_segmentation_tpu_torch.train import train_ssl
+    from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
+
+    original = BYOLTask.train_step
+    losses = []
+
+    def recorded(self, *a, **kw):
+        m = original(self, *a, **kw)
+        losses[-1].append(float(m["loss"]))
+        return m
+
+    runs = {}
+    launch_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                  "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    BYOLTask.train_step = recorded
+    try:
+        for name in ("plain", "nccl"):
+            losses.append([])
+            if name == "nccl":
+                os.environ.update(launch_env)
+            try:
+                fa.fused_two_view_augment.launches = 0
+                result = train_ssl.run(dist_train_argv(workdir, f"dist_{name}"))
+                launches = fa.fused_two_view_augment.launches
+                backend = dist.get_backend() if dist.is_initialized() else None
+            finally:
+                shutdown_distributed()
+                for k in launch_env:
+                    os.environ.pop(k, None)
+            steady = result.epochs[1:]
+            state = result.task.state_dict()
+            runs[name] = dict(backend=backend, launches=launches, losses=losses[-1], state={side: {k: v.detach().cpu() for k, v in
+                                                                              state[side].items()}
+                                                                       for side in ("online", "target")},
+                              ms=1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady))
+            del result, state
+            torch.cuda.empty_cache()
+    finally:
+        BYOLTask.train_step = original
+    plain, nccl = runs["plain"], runs["nccl"]
+    check(plain["backend"] is None and nccl["backend"] == "nccl", f"backends {plain['backend']}, {nccl['backend']}")
+    check(nccl["losses"][:2] == plain["losses"][:2] and len(nccl["losses"]) == len(plain["losses"]) and
+          all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(nccl["losses"], plain["losses"])),
+          f"one-rank NCCL losses {nccl['losses']} vs plain {plain['losses']}")
+    errs = {side: _group_err(nccl["state"][side], plain["state"][side], list(plain["state"][side]))
+            for side in ("online", "target")}
+    equal = all(torch.equal(nccl["state"][s][k], plain["state"][s][k]) for s in errs for k in plain["state"][s])
+    check(max(errs.values()) <= 1e-3, f"one-rank NCCL parameters vs plain: {errs}")
+    steps = DIST_TRAIN_EPOCHS * DIST_TRAIN_STEPS
+    check(nccl["launches"] == plain["launches"] == steps + 1, f"launches {plain['launches']}, {nccl['launches']}")
+    phase("dist_nccl", ranks=1, backend="nccl", launches=nccl["launches"], first_loss=nccl["losses"][1],
+          losses_equal=nccl["losses"] == plain["losses"],
+          params_bit_equal=equal, params_rel=errs, ms_per_step_plain=plain["ms"], ms_per_step_nccl=nccl["ms"],
+          card=repr(card))
+    return {"plain": plain["ms"], "nccl": nccl["ms"], "launches": nccl["launches"]}
+
+
+def run_dist(torch, fa, workdir: str, card: str) -> dict:
+    """The data-parallel phases: the step cases, the trainer in two gloo
+    ranks and in a one-rank NCCL group. Returns the kernel launches of each
+    rank of the two-rank trainer and of the NCCL run."""
+    t0 = time.time()
+    run_dist_steps(torch, workdir, card)
+    recs = run_dist_train(torch, fa, workdir, card)
+    ms = run_dist_nccl(torch, fa, workdir, card)
+    phase("dist", seconds=round(time.time() - t0, 2), ms_per_step_1_rank=ms["plain"],
+          ms_per_step_1_rank_nccl=ms["nccl"], ms_per_step_2_ranks_gloo=recs[0]["ms_per_step"],
+          note="two ranks share one card and all-reduce through the host (gloo): no measure of multi-card scaling",
+          card=repr(card))
+    return {"launches_data_parallel_path": [r["launches"] for r in recs], "launches_nccl_path": ms["launches"],
+            "data_parallel_kernel_batch": recs[0]["kernel_batch"], "data_parallel_ms": recs[0]["kernel_ms"],
+            "data_parallel_bound_ms": recs[0]["bound_ms"],
+            "data_parallel_max_bf16_ulp": max(r["kernel_max_bf16_ulp"] for r in recs)}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2317,6 +2747,7 @@ def main(argv=None) -> int:
             task, launches, ssl_ckpt = run_trainer(torch, fa, workdir, card)
             run_step_timing(torch, fa, task, card)
             del task
+            dist_record = run_dist(torch, fa, workdir, card)
             seg_ckpt = run_seg_train(torch, workdir, ssl_ckpt, card)
             run_predict(torch, workdir, seg_ckpt, card)
             # the serving path: no TPU kernel lies on it, so none is launched
@@ -2362,7 +2793,8 @@ def main(argv=None) -> int:
                                      "launches_volumetric_path": vol_launches,
                                      "launches_serving_path": serving_launches,
                                      "launches_ingest_path": ingest_launches,
-                                     "launches_parity_path": parity_launches, **kernel_record}])
+                                     "launches_parity_path": parity_launches, **dist_record,
+                                     **kernel_record}])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -19,6 +19,13 @@ BatchNorm statistics into the state dicts of this package, so a model
 trained there is served, probed, validated or grafted here. The optimizer
 state does not cross, so ``--resume`` refuses such a directory.
 
+Several processes: ``save_rank0`` writes on rank 0 only and then holds
+every rank until the file is there (a broadcast of a flag), so a later
+``--resume`` reads the same file on every rank. A tensor-parallel task's
+``state_dict`` gathers its heads, so its checkpoint is laid out as a
+one-card one and loads at any ``--model_parallel``; loading keeps each
+rank's slices, also of a state converted from the JAX package.
+
 ``load_byol_encoder_into_unet`` grafts the ONLINE encoder's backbone of a
 BYOL checkpoint (weights and BatchNorm running statistics; never the
 momentum target) into a U-Net's ``encoder``, adapting the stem to the
@@ -39,6 +46,7 @@ import torch
 from medical_image_segmentation_tpu_torch.core.convert import (
     flax_to_state_dict, probe_flax_to_state_dict, unet3d_flax_to_state_dict, unet_flax_to_state_dict,
 )
+from medical_image_segmentation_tpu_torch.parallel.mesh import barrier
 
 _STEP_FILE = re.compile(r"(\d+)\.pt$")
 _BACKBONE = "encoder.backbone."
@@ -50,6 +58,18 @@ def save_checkpoint(ckpt_dir: str, state: Mapping[str, object], step: int) -> st
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(dict(state), tmp)
     os.replace(tmp, path)
+    return path
+
+
+def save_rank0(ckpt_dir: str, state: Mapping[str, object], step: int, mesh=None) -> str:
+    """Rank 0 writes ``state`` (which every rank computed, since gathering
+    tensor-parallel heads is collective); then every rank waits for it.
+    Returns the path on rank 0 and "" elsewhere."""
+    path = ""
+    if mesh is None or mesh.rank == 0:
+        path = save_checkpoint(ckpt_dir, state, step)
+        print(f"checkpoint → {path}", file=sys.stderr)
+    barrier(mesh)
     return path
 
 

@@ -11,7 +11,8 @@ levers a user can turn (a smaller ``--batch_size``, ``--remat``), unless
 The probe must not be a hidden training step: ``preserved`` puts back the
 task's weights, BatchNorm buffers, optimizer state and step count and the
 augmentation generator's state exactly as they were. On the CPU there is no
-capacity, and the guard does nothing.
+capacity, and the guard does nothing. Ranks that share a card each probe
+their own batch against their share of it (``rank_hbm_capacity``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ def device_hbm_capacity(device="cuda") -> Optional[int]:
     if device.type != "cuda":
         return None
     return int(torch.cuda.mem_get_info(device)[1])
+
+
+def rank_hbm_capacity(device="cuda", ranks_per_device: int = 1) -> Optional[int]:
+    """The card's memory one rank may fill: all of it, or its share when
+    ``ranks_per_device`` ranks share the card; None off the card."""
+    capacity = device_hbm_capacity(device)
+    return capacity // ranks_per_device if capacity is not None else None
 
 
 def probe_peak(probe: Callable[[], Any], device="cuda") -> Optional[int]:

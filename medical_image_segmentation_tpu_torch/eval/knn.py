@@ -11,6 +11,14 @@
 
 The similarity product is a plain matmul and the selection a ``topk``, as
 in the JAX package, where both run in XLA outside any Pallas kernel.
+
+Several ranks (``group``): the JAX evaluator works on global arrays, so
+its bank holds every host's rows (``eval/knn.py:130-146`` there). Here
+each rank embeds its shard of every bank batch and the rows of all ranks
+are gathered (an all-reduce of a zero-filled buffer), in rank order, so
+every rank holds the whole bank and ``max_bank_size`` counts global rows.
+Each rank scores its own val rows; the accuracy is the global count of
+hits over the global total.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from __future__ import annotations
 from typing import Callable, Iterable, Optional, Tuple
 
 import torch
+
+from medical_image_segmentation_tpu_torch.parallel.mesh import all_reduce_, gather_rows
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -87,8 +97,9 @@ class KNNEvaluator:
     the bank is larger than it."""
 
     def __init__(self, num_classes: int, k: int = 200, temperature: float = 0.07,
-                 max_bank_size: Optional[int] = None, bank_chunk_size: Optional[int] = None):
+                 max_bank_size: Optional[int] = None, bank_chunk_size: Optional[int] = None, group=None):
         self.num_classes = num_classes
+        self.group = group
         self.k = k
         self.temperature = temperature
         self.max_bank_size = max_bank_size
@@ -105,10 +116,12 @@ class KNNEvaluator:
             if cap is not None and n >= cap:
                 break
             f = _l2_normalize(embed_fn(x).float())
+            y = torch.as_tensor(y, device=f.device)
+            f, y = gather_rows(f, self.group), gather_rows(y, self.group)
             if cap is not None and n + f.shape[0] > cap:
                 f, y = f[:cap - n], y[:cap - n]
             feats.append(f)
-            labels.append(torch.as_tensor(y, device=f.device))
+            labels.append(y)
             n += f.shape[0]
         return torch.cat(feats), torch.cat(labels)
 
@@ -125,9 +138,10 @@ class KNNEvaluator:
         """Top-1 accuracy of the KNN vote over ``val_batches``; batches are
         (images, int labels), the images as ``embed_fn`` takes them."""
         bank, bank_labels = self.build_bank(embed_fn, train_batches)
-        correct, total = 0, 0
+        counts = torch.zeros(2, dtype=torch.int64, device=bank.device)
         for x, y in val_batches:
             pred = self.scores(embed_fn(x), bank, bank_labels).argmax(dim=-1)
-            correct += int((pred == torch.as_tensor(y, device=pred.device)).sum())
-            total += int(y.shape[0])
+            counts[0] += (pred == torch.as_tensor(y, device=pred.device)).sum()
+            counts[1] += y.shape[0]
+        correct, total = all_reduce_(counts, self.group).tolist()
         return correct / max(total, 1)

@@ -5,6 +5,8 @@ encoder + predictor MLP + a linear probe fed with detached backbone
 features, so the probe never trains the backbone. The momentum ("target")
 encoder is a second ``Encoder`` that ``train/byol_task.py`` EMA-updates.
 ``remat`` checkpoints the backbone's residual blocks (``models/byol.py:47-61,81-93``).
+``model_group`` makes the projector and predictor heads tensor-parallel
+over that process group (``models/mlp.py``, ``parallel/tp.py``).
 ``volumetric`` swaps the ResNet for a ``UNet3DEncoder`` of ``features3d``
 with its default GroupNorm (inputs become NDHWC volumes); projector,
 predictor and probe do not change.
@@ -25,13 +27,13 @@ from medical_image_segmentation_tpu_torch.models.unet3d import UNet3DEncoder
 class Encoder(nn.Module):
     def __init__(self, arch: str = "resnet18", in_channels: int = 3, low_res: bool = False,
                  hidden_dim: int = 4096, proj_dim: int = 256, remat: bool = False, volumetric: bool = False,
-                 features3d: Sequence[int] = (32, 64, 128, 256)):
+                 features3d: Sequence[int] = (32, 64, 128, 256), model_group=None):
         super().__init__()
         if volumetric:
             self.backbone = UNet3DEncoder(in_channels, features3d, remat=remat)
         else:
             self.backbone = ResNet(arch, in_channels, low_res, remat)
-        self.projector = MLP(self.backbone.feature_dim, hidden_dim, proj_dim)
+        self.projector = MLP(self.backbone.feature_dim, hidden_dim, proj_dim, model_group)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.backbone.reset_parameters(generator)
@@ -50,10 +52,11 @@ class BYOLNet(nn.Module):
 
     def __init__(self, arch: str = "resnet18", in_channels: int = 3, low_res: bool = False,
                  hidden_dim: int = 4096, proj_dim: int = 256, num_classes: int = 10, remat: bool = False,
-                 volumetric: bool = False, features3d: Sequence[int] = (32, 64, 128, 256)):
+                 volumetric: bool = False, features3d: Sequence[int] = (32, 64, 128, 256), model_group=None):
         super().__init__()
-        self.encoder = Encoder(arch, in_channels, low_res, hidden_dim, proj_dim, remat, volumetric, features3d)
-        self.predictor = MLP(proj_dim, hidden_dim, proj_dim)
+        self.encoder = Encoder(arch, in_channels, low_res, hidden_dim, proj_dim, remat, volumetric, features3d,
+                               model_group)
+        self.predictor = MLP(proj_dim, hidden_dim, proj_dim, model_group)
         self.probe = nn.Linear(self.encoder.backbone.feature_dim, num_classes)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

@@ -21,6 +21,12 @@ random number one view needs, ``apply_view`` is deterministic given them;
 pipeline the same way. The tests feed the ``apply_*`` functions the draws
 that the JAX code makes from its keys, so the two packages are compared on
 identical randomness.
+
+``shard=(index, count)`` at the sampling entry points: a data-parallel
+rank draws for the global batch (``count`` times its own rows) from the
+stream every rank shares and keeps the rows of its ``index``
+(``keep_rows``). An N-rank step then sees the draws of a one-rank step,
+and one generator state stands for the whole run.
 """
 
 from __future__ import annotations
@@ -70,6 +76,21 @@ BYOL_TV_VIEW1 = ViewConfig(blur_prob=1.0, jitter_prob=0.8, brightness=0.4, contr
                            saturation=0.2, solarize_prob=0.0)
 BYOL_TV_VIEW2 = ViewConfig(blur_prob=0.1, jitter_prob=0.8, brightness=0.4, contrast=0.4,
                            saturation=0.2, solarize_prob=0.2)
+
+
+Shard = Tuple[int, int]
+
+
+def keep_rows(draws, shard: Shard):
+    """Rows ``index`` of ``count`` equal blocks of every draw in ``draws``
+    (a tensor or a dict of them), for ``shard = (index, count)``."""
+    index, count = shard
+    if count == 1:
+        return draws
+    if isinstance(draws, dict):
+        return {k: keep_rows(v, shard) for k, v in draws.items()}
+    per = draws.shape[0] // count
+    return draws[index * per:(index + 1) * per]
 
 
 def _uniform(generator: torch.Generator, n: int, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
@@ -243,10 +264,12 @@ def apply_view(draws: Dict[str, torch.Tensor], images: torch.Tensor, cfg: ViewCo
 
 
 def augment_view(generator: torch.Generator, images: torch.Tensor, cfg: ViewConfig,
-                 mean: Sequence[float], std: Sequence[float], dtype=torch.bfloat16) -> torch.Tensor:
+                 mean: Sequence[float], std: Sequence[float], dtype=torch.bfloat16,
+                 shard: Shard = (0, 1)) -> torch.Tensor:
     """Sample one view's draws from ``generator`` and apply them."""
     b, in_h, in_w, c = images.shape
-    return apply_view(sample_view_draws(generator, b, in_h, in_w, c, cfg), images, cfg, mean, std, dtype)
+    draws = keep_rows(sample_view_draws(generator, b * shard[1], in_h, in_w, c, cfg), shard)
+    return apply_view(draws, images, cfg, mean, std, dtype)
 
 
 def two_view_augment(
@@ -257,12 +280,13 @@ def two_view_augment(
     mean: Tuple[float, ...] = (57.9764,),    # RADIOLOGY_1M train stats
     std: Tuple[float, ...] = (60.4759,),
     dtype=torch.bfloat16,
+    shard: Shard = (0, 1),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SSL two-view pipeline (``ops/augment.py:278-297``): one batch in,
     two independently augmented views out. ``generator`` lives on the
     device of ``images``."""
-    v1 = augment_view(generator, images, cfg1, mean, std, dtype)
-    v2 = augment_view(generator, images, cfg2, mean, std, dtype)
+    v1 = augment_view(generator, images, cfg1, mean, std, dtype, shard)
+    v2 = augment_view(generator, images, cfg2, mean, std, dtype, shard)
     return v1, v2
 
 
@@ -284,9 +308,10 @@ def apply_view_tail(draws: Dict[str, torch.Tensor], views: torch.Tensor, cfg: Vi
 
 
 def augment_view_tail(generator: torch.Generator, views: torch.Tensor, cfg: ViewConfig,
-                      mean: Sequence[float], std: Sequence[float], dtype=torch.bfloat16) -> torch.Tensor:
+                      mean: Sequence[float], std: Sequence[float], dtype=torch.bfloat16,
+                      shard: Shard = (0, 1)) -> torch.Tensor:
     """Sample one view's tail draws from ``generator`` and apply them."""
-    draws = sample_tail_draws(generator, views.shape[0], views.shape[-1], cfg)
+    draws = keep_rows(sample_tail_draws(generator, views.shape[0] * shard[1], views.shape[-1], cfg), shard)
     return apply_view_tail(draws, views, cfg, mean, std, dtype)
 
 
@@ -298,6 +323,7 @@ def two_view_tail_augment(
     mean: Tuple[float, ...] = (57.9764,),
     std: Tuple[float, ...] = (60.4759,),
     dtype=torch.bfloat16,
+    shard: Shard = (0, 1),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two-view tail over what ``Loader(precrop=...)`` ships
     (``ops/augment.py:324-350``): rows 2i and 2i+1 are sample i's two
@@ -305,8 +331,8 @@ def two_view_tail_augment(
     if views.shape[0] % 2:
         raise ValueError("precrop views array must hold 2 views per sample")
     vv = views.view(views.shape[0] // 2, 2, *views.shape[1:])
-    v1 = augment_view_tail(generator, vv[:, 0], cfg1, mean, std, dtype)
-    v2 = augment_view_tail(generator, vv[:, 1], cfg2, mean, std, dtype)
+    v1 = augment_view_tail(generator, vv[:, 0], cfg1, mean, std, dtype, shard)
+    v2 = augment_view_tail(generator, vv[:, 1], cfg2, mean, std, dtype, shard)
     return v1, v2
 
 
@@ -372,10 +398,11 @@ def segmentation_augment(generator: Optional[torch.Generator], images: torch.Ten
                          out_size: Tuple[int, int] = (224, 224), mean: Sequence[float] = (0.2089,),
                          std: Sequence[float] = (0.2109,), train: bool = True,
                          value_scale: float = 1.0 / 255.0, dtype=torch.bfloat16,
-                         hu_windows: Sequence[Tuple[float, float]] = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+                         hu_windows: Sequence[Tuple[float, float]] = (),
+                         shard: Shard = (0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample the draws from ``generator`` when ``train`` (eval needs no
     generator) and apply them: the JAX ``segmentation_augment``."""
-    draws = sample_segmentation_draws(generator, images.shape[0]) if train else None
+    draws = keep_rows(sample_segmentation_draws(generator, images.shape[0] * shard[1]), shard) if train else None
     return apply_segmentation(draws, images, masks, out_size, mean, std, value_scale, dtype, hu_windows)
 
 

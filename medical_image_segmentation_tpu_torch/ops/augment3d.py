@@ -15,6 +15,8 @@ order of the JAX keys ``kcrop, kflip, kb, kc`` (``:62``, ``:101``), and
 Crop and flips are one gather: the index of output voxel k along an axis
 is ``origin + k``, or ``origin + size − 1 − k`` where that axis is flipped,
 so nothing is copied twice and no origin comes back to the host.
+``shard=(index, count)`` draws for the global batch and keeps a data
+rank's rows, as in ``ops/augment.py::keep_rows``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from medical_image_segmentation_tpu_torch.ops.augment import _uniform, apply_hu_windows
+from medical_image_segmentation_tpu_torch.ops.augment import Shard, _uniform, apply_hu_windows, keep_rows
 
 Draws = Dict[str, torch.Tensor]
 
@@ -115,11 +117,12 @@ def apply_segmentation_3d(
 def segmentation_augment_3d(generator: Optional[torch.Generator], vols: torch.Tensor, masks: torch.Tensor,
                             out_size: Tuple[int, int, int] = (64, 64, 64), mean: Sequence[float] = (0.2089,),
                             std: Sequence[float] = (0.2109,), train: bool = True, value_scale: float = 1.0,
-                            dtype=torch.bfloat16,
-                            hu_windows: Sequence[Tuple[float, float]] = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+                            dtype=torch.bfloat16, hu_windows: Sequence[Tuple[float, float]] = (),
+                            shard: Shard = (0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample the draws from ``generator`` when ``train`` (eval needs no
     generator) and apply them: the JAX ``segmentation_augment_3d``."""
-    draws = sample_volume_draws(generator, vols.shape[0], vols.shape[1:4], out_size) if train else None
+    draws = (keep_rows(sample_volume_draws(generator, vols.shape[0] * shard[1], vols.shape[1:4], out_size), shard)
+             if train else None)
     return apply_segmentation_3d(draws, vols, masks, out_size, mean, std, value_scale, dtype, hu_windows)
 
 
@@ -136,9 +139,10 @@ def apply_byol_view_3d(draws: Draws, vols: torch.Tensor, out_size: Tuple[int, in
 def byol_two_view_augment_3d(generator: torch.Generator, vols: torch.Tensor,
                              out_size: Tuple[int, int, int] = (32, 64, 64), mean: Sequence[float] = (0.2089,),
                              std: Sequence[float] = (0.2109,), value_scale: float = 1.0,
-                             dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+                             dtype=torch.bfloat16, shard: Shard = (0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two independently drawn views of every volume, view 1's draws first
     (``ops/augment3d.py:122-138``)."""
-    v1, v2 = (apply_byol_view_3d(sample_volume_draws(generator, vols.shape[0], vols.shape[1:4], out_size),
+    n = vols.shape[0] * shard[1]
+    v1, v2 = (apply_byol_view_3d(keep_rows(sample_volume_draws(generator, n, vols.shape[1:4], out_size), shard),
                                  vols, out_size, mean, std, value_scale, dtype) for _ in range(2))
     return v1, v2

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from medical_image_segmentation_tpu_torch.ops.augment import LUMA, ViewConfig, sample_rrc_window
+from medical_image_segmentation_tpu_torch.ops.augment import LUMA, ViewConfig, keep_rows, sample_rrc_window
 
 PARAMS_PER_VIEW = 11
 N_PARAMS = 24
@@ -257,6 +257,7 @@ def fused_two_view_augment(
     dtype=torch.bfloat16,
     generator: Optional[torch.Generator] = None,
     params: Optional[torch.Tensor] = None,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both views of ``images`` (B,H,W,C) or (B,H,W), uint8 or uint16, as
     two (B, oh, ow, C) tensors in ``dtype``.
@@ -264,8 +265,10 @@ def fused_two_view_augment(
     On a CUDA tensor this launches the hand-written kernel, and raises if
     it cannot; on a CPU tensor it runs ``two_view_augment_reference``.
     ``params`` injects a (B, 24) block (the tests pass JAX's); otherwise it
-    is drawn from ``generator``. ``fused_two_view_augment.launches`` counts
-    kernel launches."""
+    is drawn from ``generator``: for the global batch under ``shard =
+    (index, count)``, of which this data rank keeps its rows
+    (``ops/augment.py::keep_rows``). ``fused_two_view_augment.launches``
+    counts kernel launches."""
     if images.ndim == 3:
         images = images.unsqueeze(-1)
     b, in_h, in_w, c = images.shape
@@ -273,7 +276,7 @@ def fused_two_view_augment(
     if params is None:
         if generator is None:
             raise ValueError("pass a generator or a params block")
-        params = sample_view_params(generator, b, in_h, in_w, cfg1, cfg2)
+        params = keep_rows(sample_view_params(generator, b * shard[1], in_h, in_w, cfg1, cfg2), shard)
     args = (params, images, cfg1.out_size, tuple(mean), tuple(std), float(cfg1.value_max), dtype)
     if images.is_cuda:
         return _launch(*args)

@@ -37,7 +37,8 @@ class Segmentation3DTask(SegmentationTask):
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
         remat: bool = False,
+        mesh=None,
     ):
         net_kw = dict(n_classes=n_classes, in_channels=in_channels, features=tuple(features), norm=norm, remat=remat)
         self._build(UNet3D, net_kw, torch.channels_last_3d, learning_rate, weight_decay, momentum, warmup_epochs,
-                    max_epochs, min_lr, steps_per_epoch, loss, dtype, device)
+                    max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh)

@@ -11,7 +11,12 @@
 - bf16 compute through ``torch.autocast`` when ``dtype`` is bf16; f32
   parameters, loss and metrics;
 - ``remat`` checkpoints each residual block of the encoder;
-  ``state_dict``/``load_state_dict`` carry the model, optimizer and step.
+  ``state_dict``/``load_state_dict`` carry the model, optimizer and step;
+- ``mesh`` (``parallel/mesh.py``) trains over the ``data`` ranks as the
+  JAX task does over a sharded batch: each rank passes its rows, the
+  BatchNorm statistics and the Dice sums are the global batch's, the
+  gradients are averaged over the group by one bucketed all-reduce, and
+  the returned loss and eval metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -20,12 +25,14 @@ from typing import Dict
 
 import torch
 
+from medical_image_segmentation_tpu_torch.models.batchnorm import set_group
 from medical_image_segmentation_tpu_torch.models.unet import UNet
 from medical_image_segmentation_tpu_torch.ops.dice import (
     dice_ce, dice_coefficient, dice_loss, jaccard_index, post_process_masks,
 )
 from medical_image_segmentation_tpu_torch.ops.lars import LARS
 from medical_image_segmentation_tpu_torch.ops.schedules import linear_warmup_cosine_annealing
+from medical_image_segmentation_tpu_torch.parallel.mesh import all_reduce_mean_grads, global_mean, replicate
 
 
 class SegmentationTask:
@@ -45,13 +52,14 @@ class SegmentationTask:
         dtype: torch.dtype = torch.bfloat16,
         device="cuda",
         remat: bool = False,
+        mesh=None,
     ):
         self._build(UNet, dict(arch=arch, n_classes=n_classes, in_channels=in_channels, remat=remat),
                     torch.channels_last, learning_rate, weight_decay, momentum, warmup_epochs, max_epochs, min_lr,
-                    steps_per_epoch, loss, dtype, device)
+                    steps_per_epoch, loss, dtype, device, mesh)
 
     def _build(self, net_cls, net_kw, memory_format, learning_rate, weight_decay, momentum, warmup_epochs,
-               max_epochs, min_lr, steps_per_epoch, loss, dtype, device) -> None:
+               max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh=None) -> None:
         """Everything but the choice of network, which ``train/seg3d_task.py`` makes differently."""
         if loss not in ("dice", "dice_ce"):
             raise ValueError(f"loss must be 'dice' or 'dice_ce', got {loss!r}")
@@ -63,6 +71,9 @@ class SegmentationTask:
         self._loss = dice_ce if loss == "dice_ce" else dice_loss
         self._net_cls, self._net_kw = net_cls, net_kw
         self.model = net_cls(**net_kw).to(self.device, memory_format=memory_format)
+        self.mesh = mesh
+        self._group = mesh.group("data") if mesh is not None else None
+        set_group((self.model,), self._group)
         self.schedule = linear_warmup_cosine_annealing(
             learning_rate, warmup_epochs, max_epochs, eta_min=min_lr, steps_per_epoch=steps_per_epoch)
         self.optimizer = LARS(self.model.parameters(), lr=0.0, weight_decay=weight_decay, momentum=momentum)
@@ -73,6 +84,7 @@ class SegmentationTask:
         fresh = self._net_cls(**self._net_kw)
         fresh.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.load_state_dict(fresh.state_dict())
+        replicate(self.model.state_dict().values(), self.mesh)
         self.optimizer.state.clear()
         self.step = 0
 
@@ -84,15 +96,16 @@ class SegmentationTask:
         (no sync), ``lr`` a float."""
         self.model.train()
         with self._autocast():
-            loss = self._loss(self.model(images), masks)
+            loss = self._loss(self.model(images), masks, group=self._group)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_mean_grads(self.model.parameters(), self._group)
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
-        return {"train/loss": loss.detach(), "lr": lr}
+        return {"train/loss": global_mean(loss.detach(), self._group), "lr": lr}
 
     @torch.no_grad()
     def logits(self, images: torch.Tensor) -> torch.Tensor:
@@ -107,8 +120,9 @@ class SegmentationTask:
     def eval_step(self, images: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits = self.logits(images)
         pred = post_process_masks(logits)
-        return {"loss": dice_loss(logits, masks), "dice": dice_coefficient(pred, masks),
-                "iou": jaccard_index(pred, masks)}
+        return {"loss": dice_loss(logits, masks, group=self._group),
+                "dice": dice_coefficient(pred, masks, group=self._group),
+                "iou": jaccard_index(pred, masks, group=self._group)}
 
     def predict_step(self, images: torch.Tensor) -> torch.Tensor:
         """Binarized f32 masks."""

@@ -24,6 +24,12 @@ normalize) → one ``SegmentationTask.train_step``.
 - ``--remat`` checkpoints the encoder's residual blocks; ``--profile N``
   traces the first N steps and prints the loader's stage timers; the
   memory guard (``core/hbm.py``) runs one probe step before training.
+- several processes (torchrun or SLURM, ``parallel/mesh.py``): the global
+  ``--batch_size`` divides by the world size; each rank loads its shard
+  and keeps its rows of the global augmentation draws; BatchNorm
+  statistics, the Dice sums and the eval metrics are the global batch's,
+  gradients are averaged over the ranks; only rank 0 logs, writes
+  checkpoints and runs ``--full_res_window`` and ``--predict_grid``.
 """
 
 from __future__ import annotations
@@ -39,9 +45,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from medical_image_segmentation_tpu_torch.core.checkpoint import (
-    load_byol_encoder_into_unet, load_checkpoint, resume_latest, save_checkpoint, trainer_state,
+    load_byol_encoder_into_unet, load_checkpoint, resume_latest, save_rank0, trainer_state,
 )
-from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved
+from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved, rank_hbm_capacity
 from medical_image_segmentation_tpu_torch.core.metrics_logger import CSVMetricsLogger
 from medical_image_segmentation_tpu_torch.core.profiling import StepProfiler
 from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
@@ -52,7 +58,8 @@ from medical_image_segmentation_tpu_torch.ops.dice import dice_coefficient, jacc
 from medical_image_segmentation_tpu_torch.serve import normalize_u8
 from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
-from medical_image_segmentation_tpu_torch.train.train_ssl import refuse_unported, resolve_device
+from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
+from medical_image_segmentation_tpu_torch.train.train_ssl import refuse_unported, start_ranks
 from medical_image_segmentation_tpu_torch.utils.viz import save_combined_image_grid
 
 
@@ -136,18 +143,21 @@ class SegRun:
 def run(argv: Optional[Sequence[str]] = None) -> SegRun:
     args = parse_args(argv)
     refuse_unported(args, _UNPORTED)
-    device = resolve_device(args.device)
+    proc, mesh = start_ranks(args.device, args.batch_size)
+    device, main_rank = proc.device, proc.is_main
+    shard = mesh.shard("data")
+    per_rank = args.batch_size // shard[1]
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
 
     dm = get_datamodule(args.dataset)(images_dir=args.images_dir, masks_dir=args.masks_dir,
                                       split_file=args.split_file, image_size=args.image_size,
                                       store_prefix=args.seg_store_prefix)
-    train_loader = dm.loader("train", args.batch_size, seed=args.seed, num_threads=args.num_workers)
+    train_loader = dm.loader("train", per_rank, seed=args.seed, num_threads=args.num_workers, shard=shard)
     if len(train_loader) == 0:
         train_loader.close()
-        raise SystemExit(f"--batch_size {args.batch_size} exceeds the train split: every epoch would run 0 "
-                         "steps. Lower --batch_size to at most the train-set size.")
+        raise SystemExit(f"--batch_size {args.batch_size} (per rank {per_rank}) exceeds the train split: every "
+                         "epoch would run 0 steps. Lower --batch_size to at most the train-set size.")
     steps_per_epoch = len(train_loader)
     if args.limit_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.limit_steps_per_epoch)
@@ -158,7 +168,7 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
         arch=args.arch, n_classes=1, in_channels=len(hu_windows) or 1,
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
         warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs, min_lr=args.min_lr,
-        steps_per_epoch=steps_per_epoch, loss=args.loss, dtype=dtype, device=device, remat=args.remat,
+        steps_per_epoch=steps_per_epoch, loss=args.loss, dtype=dtype, device=device, remat=args.remat, mesh=mesh,
     )
     task.init(args.seed)
     if args.ssl_checkpoint:
@@ -178,18 +188,19 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
 
     def augment(imgs, msks, train: bool):
         return segmentation_augment(aug_gen if train else None, imgs, msks, out_size=size, mean=mean, std=std,
-                                    train=train, dtype=dtype, hu_windows=hu_windows)
+                                    train=train, dtype=dtype, hu_windows=hu_windows, shard=shard)
 
     def probe():
-        imgs = torch.zeros(args.batch_size, *size, 1, dtype=torch.uint8, device=device)
+        imgs = torch.zeros(per_rank, *size, 1, dtype=torch.uint8, device=device)
         with preserved(task, aug_gen):
             task.train_step(*augment(imgs, imgs.float(), train=True))
 
-    out.hbm = guard_step(probe, label=f"seg train step (arch {args.arch}, batch {args.batch_size})",
-                         skip=args.skip_hbm_check, force=args.force_hbm, device=device)
+    out.hbm = guard_step(probe, label=f"seg train step (arch {args.arch}, batch {per_rank} a rank)",
+                         skip=args.skip_hbm_check, force=args.force_hbm, device=device,
+                         capacity=rank_hbm_capacity(proc.device, proc.ranks_per_device))
 
     def run_eval(split: str) -> Optional[Dict[str, float]]:
-        with contextlib.closing(dm.loader(split, args.batch_size, num_threads=args.num_workers)) as loader:
+        with contextlib.closing(dm.loader(split, per_rank, num_threads=args.num_workers, shard=shard)) as loader:
             if len(loader) == 0:
                 return None
             aggr = {"loss": 0.0, "dice": 0.0, "iou": 0.0}
@@ -201,16 +212,14 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
                 n += 1
         return {f"{split}/{k}": v / n for k, v in aggr.items()}
 
-    logger = CSVMetricsLogger(args.log_dir)
+    logger = CSVMetricsLogger(args.log_dir) if main_rank else None
 
     def checkpoint(next_epoch: int) -> str:
-        path = save_checkpoint(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step)
-        print(f"checkpoint → {path}", file=sys.stderr)
-        return path
+        return save_rank0(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step, mesh)
 
-    prof = StepProfiler(args.profile, args.log_dir, device)
+    prof = StepProfiler(args.profile if main_rank else 0, args.log_dir, device)
     try:
-        with PreemptionGuard() as guard, contextlib.closing(train_loader):
+        with PreemptionGuard(mesh) as guard, contextlib.closing(train_loader):
             for epoch in range(start_epoch, args.max_epochs):
                 skip = out.skipped if epoch == start_epoch else 0
                 t0 = time.time()
@@ -225,25 +234,26 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
                         out.schedule.append((task.step - 1, metrics["lr"]))
                         n_imgs += args.batch_size
                         prof.tick()
-                        if guard.stop_requested:
+                        if guard.stop_agreed(i):
                             out.checkpoint = checkpoint(epoch if i + 1 < steps_per_epoch else epoch + 1)
                             out.stopped = True
                             return out
-                if guard.stop_requested:
+                if guard.stop_agreed(at_epoch_end=True):
                     out.checkpoint, out.stopped = checkpoint(epoch + 1), True
                     return out
                 if metrics:
                     loss = float(metrics["train/loss"])  # waits for the epoch's last step
                     dt = time.time() - t0
-                    print(f"epoch {epoch}: train/loss={loss:.4f} {n_imgs / dt:.0f} img/s", file=sys.stderr)
-                    if args.profile:
-                        print(f"loader stages (epoch {epoch}):\n{train_loader.timers.report(reset=True)}",
-                              file=sys.stderr)
-                    logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
+                    if logger:
+                        print(f"epoch {epoch}: train/loss={loss:.4f} {n_imgs / dt:.0f} img/s", file=sys.stderr)
+                        if args.profile:
+                            print(f"loader stages (epoch {epoch}):\n{train_loader.timers.report(reset=True)}",
+                                  file=sys.stderr)
+                        logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
                     out.epochs.append({"steps": n_imgs // args.batch_size, "seconds": dt,
                                        "img_per_s": n_imgs / dt, "loss": loss})
                 out.val = run_eval("val")
-                if out.val:
+                if out.val and logger:
                     print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in out.val.items()),
                           file=sys.stderr)
                     logger.log(out.val, step=task.step, epoch=epoch)
@@ -255,10 +265,12 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
         out.trace = prof.path
 
     out.test = test = run_eval("test")
-    if test:
+    if test and logger:
         print("test: " + " ".join(f"{k}={v:.4f}" for k, v in test.items()), file=sys.stderr)
         logger.log(test, step=task.step, epoch=args.max_epochs)
     out.checkpoint = checkpoint(args.max_epochs)
+    if not main_rank:
+        return out
 
     if args.full_res_window:
         _full_res_test(task, dm, args.full_res_window, mean, std, hu_windows, device, logger, args.max_epochs)
@@ -293,7 +305,10 @@ def _full_res_test(task, dm, window, mean, std, hu_windows, device, logger, epoc
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        shutdown_distributed()
     return 0
 
 

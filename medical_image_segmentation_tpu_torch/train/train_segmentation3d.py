@@ -28,6 +28,14 @@ Medical Decathlon NIfTI volumes on the host to ``--volume_size`` →
   larger than the train split is refused, since every epoch would run no
   step.
 
+Several processes (torchrun or SLURM, ``parallel/mesh.py``): the global
+``--batch_size`` divides by the world size; each rank reads its shard of
+the volumes (``VolumeLoader(num_hosts=N, host_id=rank)``) and keeps its
+rows of the global augmentation draws; Dice sums (and BatchNorm statistics
+under ``--norm batch``) are the global batch's, gradients are averaged;
+only rank 0 logs, writes checkpoints and runs ``--full_res_window``.
+``--device_cache`` stays single-process, as in the JAX trainer.
+
 Only ``--space_shards > 1`` (depth sharded over several cards) is not
 ported; it raises.
 """
@@ -44,9 +52,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from medical_image_segmentation_tpu_torch.core.checkpoint import (
-    load_byol3d_encoder_into_unet3d, load_checkpoint, resume_latest, save_checkpoint, trainer_state,
+    load_byol3d_encoder_into_unet3d, load_checkpoint, resume_latest, save_rank0, trainer_state,
 )
-from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved
+from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved, rank_hbm_capacity
 from medical_image_segmentation_tpu_torch.core.metrics_logger import CSVMetricsLogger
 from medical_image_segmentation_tpu_torch.data.device_feed import build_corpus, volume_batches
 from medical_image_segmentation_tpu_torch.data.volumes import DecathlonVolumeDataset, VolumeLoader
@@ -56,7 +64,11 @@ from medical_image_segmentation_tpu_torch.ops.augment3d import segmentation_augm
 from medical_image_segmentation_tpu_torch.ops.dice import dice_coefficient, jaccard_index, post_process_masks
 from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
 from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
-from medical_image_segmentation_tpu_torch.train.train_ssl import refuse_unported, resolve_device
+from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
+from medical_image_segmentation_tpu_torch.train.train_ssl import refuse_unported, start_ranks
+
+DEVICE_CACHE_SINGLE = ("--device_cache is single-process only (a per-host corpus would desynchronize the global "
+                       "shuffle); use --cache_volumes on multi-host runs")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -82,7 +94,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--hu_windows", default=None, metavar="L:W,L:W,…",
                     help="fixed display windows (level:width on the 0-1 intensity scale) stacked as input "
                          "channels; applied at train, eval and sliding-window eval")
-    ap.add_argument("--space_shards", type=int, default=1, metavar="N", help="only 1 in the port so far")
+    ap.add_argument("--space_shards", type=int, default=1, metavar="N",
+                    help="only 1 in the port so far (depth sharding is ROADMAP.md item 32)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device; cuda raises if absent")
     ap.add_argument("--log_dir", default="logs")
@@ -121,7 +134,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 _UNPORTED = (
-    ("space_shards", lambda a: a.space_shards > 1, "depth sharding over several cards (ROADMAP.md item 22)"),
+    ("space_shards", lambda a: a.space_shards > 1,
+     "depth sharding over several cards (ROADMAP.md item 32, port slice 9: halo-exchanged 3D convolutions)"),
 )
 
 
@@ -154,7 +168,12 @@ class Seg3DRun:
 def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
     args = parse_args(argv)
     refuse_unported(args, _UNPORTED)
-    device = resolve_device(args.device)
+    proc, mesh = start_ranks(args.device, args.batch_size)
+    device, main_rank = proc.device, proc.is_main
+    shard = mesh.shard("data")
+    per_rank = args.batch_size // shard[1]
+    if args.device_cache and proc.world_size > 1:
+        raise SystemExit(DEVICE_CACHE_SINGLE)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
     volume_size, crop = tuple(args.volume_size), tuple(args.crop_size)
@@ -164,9 +183,10 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
                                       split_file=args.split_file, split=split, cache=args.cache_volumes)
 
     ds_train = dataset("train")
-    train_loader = VolumeLoader(ds_train, args.batch_size, shuffle=True, seed=args.seed)
+    train_loader = VolumeLoader(ds_train, per_rank, shuffle=True, seed=args.seed, num_hosts=shard[1],
+                                host_id=shard[0])
     if len(train_loader) == 0:
-        raise SystemExit(f"--batch_size {args.batch_size} exceeds the train split ({len(ds_train)} volumes): "
+        raise SystemExit(f"--batch_size {args.batch_size} (per rank {per_rank}) exceeds the train split ({len(ds_train)} volumes): "
                          "every epoch would run 0 steps. Lower --batch_size to at most the train-set size.")
     steps_per_epoch = len(train_loader)
     if args.limit_steps_per_epoch:
@@ -178,7 +198,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
         n_classes=1, in_channels=len(hu_windows) or 1, features=tuple(args.features), norm=args.norm,
         learning_rate=args.learning_rate, weight_decay=args.weight_decay, warmup_epochs=args.warmup_epochs,
         max_epochs=args.max_epochs, min_lr=args.min_lr, steps_per_epoch=steps_per_epoch, loss=args.loss,
-        dtype=dtype, device=device, remat=args.remat,
+        dtype=dtype, device=device, remat=args.remat, mesh=mesh,
     )
     task.init(args.seed)
     if args.ssl_checkpoint:
@@ -195,7 +215,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
 
     def augment(vols, msks, train: bool):
         return segmentation_augment_3d(aug_gen if train else None, vols, msks, out_size=crop, mean=(args.mean,),
-                                       std=(args.std,), train=train, dtype=dtype, hu_windows=hu_windows)
+                                       std=(args.std,), train=train, dtype=dtype, hu_windows=hu_windows, shard=shard)
 
     # the eval splits are set up once, before the memory guard, so that its
     # probe runs on top of every corpus the run will keep on the card
@@ -204,7 +224,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
             ds = dataset(split)
         except ValueError:
             return None
-        loader = VolumeLoader(ds, args.batch_size, shuffle=False, drop_last=False)
+        loader = VolumeLoader(ds, per_rank, shuffle=False, drop_last=False, num_hosts=shard[1], host_id=shard[0])
         return loader, (build_corpus(ds, device) if args.device_cache else None)
 
     train_corpus = build_corpus(ds_train, device) if args.device_cache else None
@@ -216,14 +236,15 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
               "device", file=sys.stderr)
 
     def probe():
-        vols = torch.zeros(args.batch_size, *volume_size, 1, device=device)
+        vols = torch.zeros(per_rank, *volume_size, 1, device=device)
         with preserved(task, aug_gen):
             task.train_step(*augment(vols, vols, train=True))
 
-    label = f"seg3d train step (batch {args.batch_size})"
+    label = f"seg3d train step (batch {per_rank} a rank)"
     if out.corpus_bytes:
         label += f" on top of {out.corpus_bytes / 2**30:.2f} GiB of corpora kept on the device (in the peak)"
-    out.hbm = guard_step(probe, label=label, skip=args.skip_hbm_check, force=args.force_hbm, device=device)
+    out.hbm = guard_step(probe, label=label, skip=args.skip_hbm_check, force=args.force_hbm, device=device,
+                         capacity=rank_hbm_capacity(proc.device, proc.ranks_per_device))
 
     def run_eval(split: str) -> Optional[Dict[str, float]]:
         ctx = eval_ctx.get(split)
@@ -240,14 +261,12 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
                 n += 1
         return {f"{split}/{k}": v / n for k, v in aggr.items()}
 
-    logger = CSVMetricsLogger(args.log_dir)
+    logger = CSVMetricsLogger(args.log_dir) if main_rank else None
 
     def checkpoint(next_epoch: int) -> str:
-        path = save_checkpoint(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step)
-        print(f"checkpoint → {path}", file=sys.stderr)
-        return path
+        return save_rank0(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step, mesh)
 
-    with PreemptionGuard() as guard:
+    with PreemptionGuard(mesh) as guard:
         for epoch in range(start_epoch, args.max_epochs):
             skip = out.skipped if epoch == start_epoch else 0
             t0 = time.time()
@@ -258,23 +277,24 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
                     out.losses.append(metrics["train/loss"])
                     out.schedule.append((task.step - 1, metrics["lr"]))
                     done += 1
-                    if guard.stop_requested:
+                    if guard.stop_agreed(done - 1):
                         out.checkpoint = checkpoint(epoch if done < steps_per_epoch else epoch + 1)
                         out.stopped = True
                         return out
-            if guard.stop_requested:
+            if guard.stop_agreed(at_epoch_end=True):
                 out.checkpoint, out.stopped = checkpoint(epoch + 1), True
                 return out
             if metrics:
                 loss = float(metrics["train/loss"])  # waits for the epoch's last step
                 dt = time.time() - t0
                 n_vols = (done - skip) * args.batch_size
-                print(f"epoch {epoch}: train/loss={loss:.4f} {n_vols / dt:.1f} vol/s", file=sys.stderr)
-                logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
+                if logger:
+                    print(f"epoch {epoch}: train/loss={loss:.4f} {n_vols / dt:.1f} vol/s", file=sys.stderr)
+                    logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
                 out.epochs.append({"steps": done - skip, "seconds": dt, "vol_per_s": n_vols / dt, "loss": loss})
             if args.eval_every_epochs and ((epoch + 1) % args.eval_every_epochs == 0 or epoch + 1 == args.max_epochs):
                 out.val = run_eval("val")
-                if out.val:
+                if out.val and logger:
                     print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in out.val.items()),
                           file=sys.stderr)
                     logger.log(out.val, step=task.step, epoch=epoch)
@@ -283,12 +303,12 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
                 out.checkpoint = checkpoint(epoch + 1)
 
     out.test = run_eval("test")
-    if out.test:
+    if out.test and logger:
         print("test: " + " ".join(f"{k}={v:.4f}" for k, v in out.test.items()), file=sys.stderr)
         logger.log(out.test, step=task.step, epoch=args.max_epochs)
     out.checkpoint = checkpoint(args.max_epochs)
 
-    if args.full_res_window:
+    if args.full_res_window and main_rank:
         ds_test = eval_ctx["test"][0].ds if eval_ctx["test"] else ds_train  # no test split: the train volumes
         out.full_res = _full_res_test(task, ds_test, tuple(args.full_res_window), args.mean, args.std, hu_windows,
                                       device)
@@ -315,7 +335,10 @@ def _full_res_test(task, ds, window, mean: float, std: float, hu_windows, device
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        shutdown_distributed()
     return 0
 
 

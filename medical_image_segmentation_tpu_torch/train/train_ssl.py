@@ -33,8 +33,16 @@ Around the loop, as in the JAX trainer:
 - ``--knn_every_epochs`` runs the KNN probe (``eval/knn.py``) on the val
   store.
 
-Only ``--model_parallel > 1`` (tensor-parallel heads) is not ported; it
-raises.
+Several processes (``parallel/mesh.py``): launched by torchrun or SLURM,
+every rank runs this entry point; ``--batch_size`` is global and must
+divide by the world size. Each rank loads its shard of every epoch
+(``shard=(data rank, data ranks)``), draws the global batch's
+augmentation from the stream all ranks share and keeps its rows, and
+takes the step with global BatchNorm statistics and averaged gradients.
+Only rank 0 logs and writes checkpoints; a SIGTERM to any rank stops all
+of them at one agreed step. ``--model_parallel M`` lays the ranks out on
+a (data, model) mesh and splits the BYOL heads over the M ranks of each
+model group (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -51,9 +59,9 @@ import numpy as np
 import torch
 
 from medical_image_segmentation_tpu_torch.core.checkpoint import (
-    load_checkpoint, resume_latest, save_checkpoint, trainer_state,
+    load_checkpoint, resume_latest, save_rank0, trainer_state,
 )
-from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved
+from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved, rank_hbm_capacity
 from medical_image_segmentation_tpu_torch.core.metrics_logger import CSVMetricsLogger
 from medical_image_segmentation_tpu_torch.core.profiling import StepProfiler
 from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
@@ -61,6 +69,10 @@ from medical_image_segmentation_tpu_torch.data.device_feed import device_batches
 from medical_image_segmentation_tpu_torch.eval.knn import KNNEvaluator
 from medical_image_segmentation_tpu_torch.ops.augment import precrop_supported, two_view_augment, two_view_tail_augment
 from medical_image_segmentation_tpu_torch.ops.fused_augment import fused_supported, fused_two_view_augment
+from medical_image_segmentation_tpu_torch.parallel.mesh import (
+    Mesh, Process, initialize_distributed, make_mesh, shutdown_distributed,
+)
+from medical_image_segmentation_tpu_torch.parallel.tp import check_model_parallel
 from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
 from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
 
@@ -117,16 +129,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="skip the pre-flight memory guard (one probe step, core/hbm.py)")
     ap.add_argument("--force_hbm", action="store_true",
                     help="run even if the probe step does not fit the card's memory")
-    ap.add_argument("--model_parallel", type=int, default=1, metavar="N", help="only 1 in the port so far")
+    ap.add_argument("--model_parallel", type=int, default=1, metavar="N",
+                    help=">1: split the projector/predictor MLP heads over N ranks of a (data, model) mesh "
+                         "(parallel/tp.py); 1 = pure data parallel")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace the first N steps with torch.profiler into <log_dir>/trace and print the "
                          "loader's stage timers each epoch")
     return ap.parse_args(argv)
 
 
-_UNPORTED = (
-    ("model_parallel", lambda a: a.model_parallel > 1, "tensor-parallel BYOL heads"),
-)
+_UNPORTED = ()  # every flag of the JAX trainer is ported
 
 
 def refuse_unported(args: argparse.Namespace, unported=_UNPORTED) -> None:
@@ -142,6 +154,22 @@ def resolve_device(name: str) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: CUDA is not available (pass --device cpu explicitly)")
     return device
+
+
+def start_ranks(device: str, batch_size: int, model_parallel: int = 1, hidden_dim: int = 0) -> Tuple[Process, Mesh]:
+    """Join the launch's process group (``parallel/mesh.py``) and lay its
+    ranks out: ``("data",)``, or ``("data", "model")`` with
+    ``model_parallel`` ranks a model group. ``batch_size`` is the global
+    batch and must divide by the world size (``train_ssl.py:143-155``)."""
+    proc = initialize_distributed(device)
+    if model_parallel > 1:
+        check_model_parallel(proc.world_size, model_parallel, hidden_dim)
+        mesh = make_mesh(("data", "model"), (proc.world_size // model_parallel, model_parallel), device=proc.device)
+    else:
+        mesh = make_mesh(device=proc.device)
+    if batch_size % proc.world_size:
+        raise SystemExit(f"--batch_size {batch_size} must be divisible by the device count {proc.world_size}")
+    return proc, mesh
 
 
 def _val_preprocess(imgs: torch.Tensor, dm, full_image: bool = False) -> torch.Tensor:
@@ -197,7 +225,10 @@ class TrainRun:
 def run(argv: Optional[Sequence[str]] = None) -> TrainRun:
     args = parse_args(argv)
     refuse_unported(args)
-    device = resolve_device(args.device)
+    proc, mesh = start_ranks(args.device, args.batch_size, args.model_parallel, args.hidden_dim)
+    device = proc.device
+    shard = mesh.shard("data")
+    per_rank = args.batch_size // shard[1]
 
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
@@ -211,26 +242,29 @@ def run(argv: Optional[Sequence[str]] = None) -> TrainRun:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     if args.run_single_validation:
-        task = _make_task(args, dm, dtype, device, steps_per_epoch=1)
+        task = _make_task(args, dm, dtype, device, steps_per_epoch=1, mesh=mesh)
         task.load_state_dict(load_checkpoint(args.checkpoint_path or args.checkpoint_dir))
-        val = _validate(task, dm, args, device, dm.val_loader(args.batch_size, num_threads=args.num_workers))
+        val = _validate(task, dm, args, device, dm.val_loader(per_rank, num_threads=args.num_workers, shard=shard))
         if val is None:
             raise SystemExit(f"--run_single_validation: the val store {dm.val_store!r} holds no batch")
-        print(" ".join(f"{k}={v:.4f}" for k, v in val.items()))
+        if proc.is_main:
+            print(" ".join(f"{k}={v:.4f}" for k, v in val.items()))
         return TrainRun(task=task, epochs=[], used_kernel=False, val=val)
 
-    train_loader = dm.train_loader(args.batch_size, num_threads=args.num_workers, seed=args.seed, precrop=precrop)
+    train_loader = dm.train_loader(per_rank, num_threads=args.num_workers, seed=args.seed, shard=shard,
+                                   distributed=shard[1] > 1, precrop=precrop)
     with contextlib.closing(train_loader):
         steps_per_epoch = len(train_loader)
         if steps_per_epoch == 0:
-            raise SystemExit(f"--batch_size {args.batch_size} exceeds the train set: every epoch would run 0 steps")
+            raise SystemExit(f"--batch_size {args.batch_size} (per rank {per_rank}) exceeds the train set: every "
+                             "epoch would run 0 steps")
         if args.limit_steps_per_epoch:
             steps_per_epoch = min(steps_per_epoch, args.limit_steps_per_epoch)
-        task = _make_task(args, dm, dtype, device, steps_per_epoch)
-        return _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, device)
+        task = _make_task(args, dm, dtype, device, steps_per_epoch, mesh)
+        return _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, proc, mesh)
 
 
-def _make_task(args, dm, dtype, device, steps_per_epoch: int) -> BYOLTask:
+def _make_task(args, dm, dtype, device, steps_per_epoch: int, mesh: Optional[Mesh] = None) -> BYOLTask:
     task = BYOLTask(
         arch=args.arch, in_channels=dm.channels, low_res=dm.low_res,
         hidden_dim=args.hidden_dim, proj_dim=args.projection_dim, num_classes=dm.NUM_CLASSES,
@@ -238,13 +272,16 @@ def _make_task(args, dm, dtype, device, steps_per_epoch: int) -> BYOLTask:
         warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs,
         base_ema_momentum=args.base_momentum, final_ema_momentum=args.final_momentum,
         total_steps=steps_per_epoch * args.max_epochs, steps_per_epoch=steps_per_epoch,
-        probe_loss_weight=args.probe_loss_weight, dtype=dtype, device=device, remat=args.remat,
+        probe_loss_weight=args.probe_loss_weight, dtype=dtype, device=device, remat=args.remat, mesh=mesh,
     )
     task.init(args.seed)
     return task
 
 
-def _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, device) -> TrainRun:
+def _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, proc: Process, mesh: Mesh) -> TrainRun:
+    device = proc.device
+    shard = mesh.shard("data")
+    per_rank = args.batch_size // shard[1]
     mean, std = tuple(dm.train_mean), tuple(dm.train_std)
     use_kernel = (not args.host_precrop and device.type == "cuda"
                   and fused_supported(cfg1, dm.channels) and fused_supported(cfg2, dm.channels)
@@ -255,10 +292,10 @@ def _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, devic
 
     def augment(imgs):
         if args.host_precrop:
-            return two_view_tail_augment(aug_gen, imgs, cfg1, cfg2, mean, std, dtype)
+            return two_view_tail_augment(aug_gen, imgs, cfg1, cfg2, mean, std, dtype, shard)
         if use_kernel:
-            return fused_two_view_augment(imgs, cfg1, cfg2, mean, std, dtype, generator=aug_gen)
-        return two_view_augment(aug_gen, imgs, cfg1, cfg2, mean, std, dtype)
+            return fused_two_view_augment(imgs, cfg1, cfg2, mean, std, dtype, generator=aug_gen, shard=shard)
+        return two_view_augment(aug_gen, imgs, cfg1, cfg2, mean, std, dtype, shard)
 
     out = TrainRun(task=task, epochs=[], used_kernel=use_kernel,
                    reader="native" if train_loader._native is not None else "python")
@@ -267,29 +304,30 @@ def _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, devic
     if resumed:
         out.resumed_from, start_epoch, out.skipped = resumed
 
-    # the memory guard's probe: one step at the shapes the loader ships
-    # (sample-major views under --host_precrop, full stored images otherwise)
-    shape = ((2 * args.batch_size, dm.crop_size, dm.crop_size, train_loader.channels) if args.host_precrop
-             else (args.batch_size, *train_loader.out_hw, train_loader.channels))
+    # the memory guard's probe: one step at the shapes the loader ships this
+    # rank (sample-major views under --host_precrop, full stored images
+    # otherwise), against this rank's share of the card
+    shape = ((2 * per_rank, dm.crop_size, dm.crop_size, train_loader.channels) if args.host_precrop
+             else (per_rank, *train_loader.out_hw, train_loader.channels))
     img_dtype = torch.from_numpy(np.zeros(0, train_loader.dtype)).dtype
 
     def probe():
         imgs = torch.zeros(shape, dtype=img_dtype, device=device)
-        labels = torch.zeros(args.batch_size, dtype=torch.int64, device=device) if has_labels else None
+        labels = torch.zeros(per_rank, dtype=torch.int64, device=device) if has_labels else None
         with preserved(task, aug_gen):
             task.train_step(*augment(imgs), labels)
 
-    out.hbm = guard_step(probe, label=f"ssl train step (arch {args.arch}, batch {args.batch_size})",
-                         skip=args.skip_hbm_check, force=args.force_hbm, device=device)
+    out.hbm = guard_step(probe, label=f"ssl train step (arch {args.arch}, batch {per_rank} a rank)",
+                         skip=args.skip_hbm_check, force=args.force_hbm, device=device,
+                         capacity=rank_hbm_capacity(proc.device, proc.ranks_per_device))
 
     def checkpoint(next_epoch: int) -> None:
-        path = save_checkpoint(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step)
-        print(f"checkpoint → {path}", file=sys.stderr)
+        save_rank0(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step, mesh)
 
-    logger = CSVMetricsLogger(args.log_dir)
-    prof = StepProfiler(args.profile, args.log_dir, device)
+    logger = CSVMetricsLogger(args.log_dir) if proc.is_main else None
+    prof = StepProfiler(args.profile if proc.is_main else 0, args.log_dir, device)
     try:
-        with PreemptionGuard() as guard:
+        with PreemptionGuard(mesh) as guard:
             for epoch in range(start_epoch, args.max_epochs):
                 skip = out.skipped if epoch == start_epoch else 0
                 t0 = time.time()
@@ -304,30 +342,32 @@ def _fit(args, dm, task, train_loader, steps_per_epoch, cfg1, cfg2, dtype, devic
                         out.schedule.append((task.step - 1, metrics["lr"], metrics["momentum"]))
                         n_imgs += args.batch_size
                         prof.tick()
-                        if guard.stop_requested:
+                        if guard.stop_agreed(i):
                             checkpoint(epoch if i + 1 < steps_per_epoch else epoch + 1)
                             out.stopped = True
                             return out
-                        if i % 50 == 0:
+                        if logger and i % 50 == 0:
                             logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
-                if guard.stop_requested:  # a signal during the epoch's last batches or its end
+                if guard.stop_agreed(at_epoch_end=True):  # a signal during the epoch's last batches or its end
                     checkpoint(epoch + 1)
                     out.stopped = True
                     return out
                 if metrics:
                     last_loss = float(metrics["loss"])  # waits for the epoch's last step
                     dt = time.time() - t0
-                    print(f"epoch {epoch}: loss={last_loss:.4f} {n_imgs / dt:.0f} img/s "
-                          f"lr={metrics['lr']:.4f} tau={metrics['momentum']:.5f}", file=sys.stderr)
+                    if proc.is_main:
+                        print(f"epoch {epoch}: loss={last_loss:.4f} {n_imgs / dt:.0f} img/s "
+                              f"({n_imgs / dt / proc.world_size:.0f}/rank) lr={metrics['lr']:.4f} "
+                              f"tau={metrics['momentum']:.5f}", file=sys.stderr)
                     out.epochs.append({"steps": n_imgs // args.batch_size, "seconds": dt,
                                        "img_per_s": n_imgs / dt, "loss": last_loss})
-                    if args.profile:
+                    if args.profile and proc.is_main:
                         print(f"loader stages (epoch {epoch}):\n{train_loader.timers.report(reset=True)}",
                               file=sys.stderr)
                 if args.val_every_epochs and (epoch + 1) % args.val_every_epochs == 0:
-                    _validate_epoch(task, dm, args, device, logger, epoch, out)
+                    _validate_epoch(task, dm, args, device, logger, epoch, out, mesh)
                 if args.knn_every_epochs and (epoch + 1) % args.knn_every_epochs == 0:
-                    _knn_epoch(task, dm, args, device, logger, epoch, out)
+                    _knn_epoch(task, dm, args, device, logger, epoch, out, mesh)
                 if args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0:
                     checkpoint(epoch + 1)
     finally:
@@ -350,43 +390,52 @@ def _validate(task, dm, args, device, val_loader) -> Optional[Dict[str, float]]:
     return {k: v / n_b for k, v in aggr.items()} if n_b else None
 
 
-def _validate_epoch(task, dm, args, device, logger, epoch, out: TrainRun) -> None:
+def _validate_epoch(task, dm, args, device, logger, epoch, out: TrainRun, mesh: Mesh) -> None:
+    shard = mesh.shard("data")
     try:
-        val_loader = dm.val_loader(args.batch_size, num_threads=args.num_workers)
+        val_loader = dm.val_loader(args.batch_size // shard[1], num_threads=args.num_workers, shard=shard)
     except FileNotFoundError:
         return
     out.val = _validate(task, dm, args, device, val_loader)
-    if out.val:
+    if out.val and logger:
         print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in out.val.items()), file=sys.stderr)
         logger.log(out.val, step=task.step, epoch=epoch)
 
 
-def _knn_epoch(task, dm, args, device, logger, epoch, out: TrainRun) -> None:
+def _knn_epoch(task, dm, args, device, logger, epoch, out: TrainRun, mesh: Mesh) -> None:
     """The KNN probe (``train_ssl.py:413-442``): a bank from the train
-    store's first ``--knn_bank_size`` images in the run's order, scored on
-    the val store; both probe loaders are closed on every path."""
+    store's first ``--knn_bank_size`` images in the run's order (every
+    rank's shard, gathered), scored on the val store; both probe loaders
+    are closed on every path."""
+    shard = mesh.shard("data")
+    per_rank = args.batch_size // shard[1]
     try:
-        bank_loader = dm.train_loader(args.batch_size, num_threads=args.num_workers, seed=args.seed)
+        bank_loader = dm.train_loader(per_rank, num_threads=args.num_workers, seed=args.seed, shard=shard)
     except FileNotFoundError:
         return
     with contextlib.closing(bank_loader):
         try:
-            val_loader = dm.val_loader(args.batch_size, num_threads=args.num_workers)
+            val_loader = dm.val_loader(per_rank, num_threads=args.num_workers, shard=shard)
         except FileNotFoundError:
             return
         with contextlib.closing(val_loader), \
                 contextlib.closing(device_batches(bank_loader, device)) as bank, \
                 contextlib.closing(device_batches(val_loader, device)) as val:
             ev = KNNEvaluator(num_classes=dm.NUM_CLASSES, max_bank_size=args.knn_bank_size or None,
-                              bank_chunk_size=args.knn_bank_chunk or None)
+                              bank_chunk_size=args.knn_bank_chunk or None, group=mesh.group("data"))
             out.knn_acc = ev.evaluate(lambda x: task.embed_step(_val_preprocess(x, dm, args.val_full_image)),
                                       bank, val)
-    print(f"epoch {epoch}: online_knn_val_acc={out.knn_acc:.4f}", file=sys.stderr)
-    logger.log({"online_knn_val_acc": out.knn_acc}, step=task.step, epoch=epoch)
+    if logger:
+        print(f"epoch {epoch}: online_knn_val_acc={out.knn_acc:.4f}", file=sys.stderr)
+        logger.log({"online_knn_val_acc": out.knn_acc}, step=task.step, epoch=epoch)
+
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        shutdown_distributed()
     return 0
 
 

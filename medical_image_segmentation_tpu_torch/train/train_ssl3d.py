@@ -14,6 +14,14 @@ the batches there by index, bit for bit the batches of the host route.
 memory guard work as in ``train/train_ssl.py``. The encoder of the
 checkpoint grafts into a ``UNet3D`` through ``mis-train-segmentation3d-torch
 --ssl_checkpoint``.
+
+Several processes (torchrun or SLURM, ``parallel/mesh.py``): the global
+``--batch_size`` divides by the world size; each rank reads its shard
+(``VolumeLoader(num_hosts=N, host_id=rank)``), keeps its rows of the
+global view draws and takes the step with global head BatchNorm
+statistics and averaged gradients; only rank 0 logs and writes
+checkpoints. ``--device_cache`` stays single-process, as in the JAX
+trainer.
 """
 
 from __future__ import annotations
@@ -27,15 +35,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from medical_image_segmentation_tpu_torch.core.checkpoint import resume_latest, save_checkpoint, trainer_state
-from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved
+from medical_image_segmentation_tpu_torch.core.checkpoint import resume_latest, save_rank0, trainer_state
+from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved, rank_hbm_capacity
 from medical_image_segmentation_tpu_torch.core.metrics_logger import CSVMetricsLogger
 from medical_image_segmentation_tpu_torch.data.device_feed import build_corpus, volume_batches
 from medical_image_segmentation_tpu_torch.data.volumes import UnlabeledVolumeDataset, VolumeLoader
 from medical_image_segmentation_tpu_torch.ops.augment3d import byol_two_view_augment_3d
 from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
 from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
-from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
+from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
+from medical_image_segmentation_tpu_torch.train.train_segmentation3d import DEVICE_CACHE_SINGLE
+from medical_image_segmentation_tpu_torch.train.train_ssl import start_ranks
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -105,15 +115,20 @@ class SSL3DRun:
 
 def run(argv: Optional[Sequence[str]] = None) -> SSL3DRun:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    proc, mesh = start_ranks(args.device, args.batch_size)
+    device, main_rank = proc.device, proc.is_main
+    shard = mesh.shard("data")
+    per_rank = args.batch_size // shard[1]
+    if args.device_cache and proc.world_size > 1:
+        raise SystemExit(DEVICE_CACHE_SINGLE)
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
     volume_size, crop = tuple(args.volume_size), tuple(args.crop_size)
 
     ds = UnlabeledVolumeDataset(args.images_dir, target_shape=volume_size, cache=args.cache_volumes)
-    loader = VolumeLoader(ds, args.batch_size, shuffle=True, seed=args.seed)
+    loader = VolumeLoader(ds, per_rank, shuffle=True, seed=args.seed, num_hosts=shard[1], host_id=shard[0])
     if len(loader) == 0:
-        raise SystemExit(f"--batch_size {args.batch_size} exceeds the unlabeled set ({len(ds)} volumes): every "
+        raise SystemExit(f"--batch_size {args.batch_size} (per rank {per_rank}) exceeds the unlabeled set ({len(ds)} volumes): every "
                          "epoch would run 0 steps. Lower --batch_size to at most the dataset size.")
     steps_per_epoch = len(loader)
     if args.limit_steps_per_epoch:
@@ -126,6 +141,7 @@ def run(argv: Optional[Sequence[str]] = None) -> SSL3DRun:
         weight_decay=args.weight_decay, warmup_epochs=args.warmup_epochs, max_epochs=args.max_epochs,
         base_ema_momentum=args.ema_momentum, total_steps=steps_per_epoch * args.max_epochs,
         steps_per_epoch=steps_per_epoch, probe_loss_weight=0.0, dtype=dtype, device=device, remat=args.remat,
+        mesh=mesh,
     )
     task.init(args.seed)
     out = SSL3DRun(task)
@@ -137,10 +153,11 @@ def run(argv: Optional[Sequence[str]] = None) -> SSL3DRun:
         out.resumed_from, start_epoch, out.skipped = resumed
 
     def augment(vols):
-        return byol_two_view_augment_3d(aug_gen, vols, out_size=crop, mean=(args.mean,), std=(args.std,), dtype=dtype)
+        return byol_two_view_augment_3d(aug_gen, vols, out_size=crop, mean=(args.mean,), std=(args.std,), dtype=dtype,
+                                        shard=shard)
 
     corpus = build_corpus(ds, device) if args.device_cache else None
-    label = f"ssl3d train step (batch {args.batch_size})"
+    label = f"ssl3d train step (batch {per_rank} a rank)"
     if corpus is not None:
         out.corpus_bytes = corpus[0].numel() * corpus[0].element_size()
         print(f"device corpus cache: {len(ds)} volumes, {out.corpus_bytes / 2**30:.2f} GiB resident on the device",
@@ -148,20 +165,19 @@ def run(argv: Optional[Sequence[str]] = None) -> SSL3DRun:
         label += f" on top of a {out.corpus_bytes / 2**30:.2f} GiB corpus kept on the device (in the peak)"
 
     def probe():
-        vols = torch.zeros(args.batch_size, *volume_size, 1, device=device)
+        vols = torch.zeros(per_rank, *volume_size, 1, device=device)
         with preserved(task, aug_gen):
             task.train_step(*augment(vols))
 
-    out.hbm = guard_step(probe, label=label, skip=args.skip_hbm_check, force=args.force_hbm, device=device)
+    out.hbm = guard_step(probe, label=label, skip=args.skip_hbm_check, force=args.force_hbm, device=device,
+                         capacity=rank_hbm_capacity(proc.device, proc.ranks_per_device))
 
-    logger = CSVMetricsLogger(args.log_dir)
+    logger = CSVMetricsLogger(args.log_dir) if main_rank else None
 
     def checkpoint(next_epoch: int) -> str:
-        path = save_checkpoint(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step)
-        print(f"checkpoint → {path}", file=sys.stderr)
-        return path
+        return save_rank0(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step, mesh)
 
-    with PreemptionGuard() as guard:
+    with PreemptionGuard(mesh) as guard:
         for epoch in range(start_epoch, args.max_epochs):
             skip = out.skipped if epoch == start_epoch else 0
             t0 = time.time()
@@ -172,20 +188,21 @@ def run(argv: Optional[Sequence[str]] = None) -> SSL3DRun:
                     out.losses.append(metrics["loss"])
                     out.schedule.append((task.step - 1, metrics["lr"], metrics["momentum"]))
                     done += 1
-                    if guard.stop_requested:
+                    if guard.stop_agreed(done - 1):
                         out.checkpoint = checkpoint(epoch if done < steps_per_epoch else epoch + 1)
                         out.stopped = True
                         return out
-            if guard.stop_requested:
+            if guard.stop_agreed(at_epoch_end=True):
                 out.checkpoint, out.stopped = checkpoint(epoch + 1), True
                 return out
             if metrics:
                 loss = float(metrics["loss"])  # waits for the epoch's last step
                 dt = time.time() - t0
                 n_vols = (done - skip) * args.batch_size
-                print(f"epoch {epoch}: loss={loss:.4f} tau={metrics['momentum']:.4f} {n_vols / dt:.1f} vol/s",
-                      file=sys.stderr)
-                logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
+                if logger:
+                    print(f"epoch {epoch}: loss={loss:.4f} tau={metrics['momentum']:.4f} {n_vols / dt:.1f} vol/s",
+                          file=sys.stderr)
+                    logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
                 out.epochs.append({"steps": done - skip, "seconds": dt, "vol_per_s": n_vols / dt, "loss": loss})
             if (args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0
                     and epoch + 1 < args.max_epochs):  # the final epoch saves below
@@ -196,7 +213,10 @@ def run(argv: Optional[Sequence[str]] = None) -> SSL3DRun:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        shutdown_distributed()
     return 0
 
 

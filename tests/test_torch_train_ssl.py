@@ -69,16 +69,16 @@ def test_run_reports_its_epochs_and_route(radiology_store, tmp_path):
     ["--knn_every_epochs", "1"], ["--profile", "3"], ["--run_single_validation"],
 ])
 def test_unported_flags_raise(tmp_path, flags):
-    """Of the flags the port once refused, only ``--model_parallel > 1``
-    still raises; the others pass the refusal (their runs are tested in
-    test_torch_train_flags.py and test_torch_resume.py)."""
-    args = train_ssl.parse_args(_argv(tmp_path, *flags))
+    """The port refuses none of the flags it once refused (their runs are
+    tested in test_torch_train_flags.py, test_torch_resume.py and, for
+    ``--model_parallel 2`` in two processes, test_torch_multiprocess_cli.py).
+    In one process ``--model_parallel 2`` meets the JAX trainer's own
+    check: M must divide the device count."""
+    train_ssl.refuse_unported(train_ssl.parse_args(_argv(tmp_path, *flags)))
     if flags[0] == "--model_parallel":
-        with pytest.raises(SystemExit, match="not ported"):
+        with pytest.raises(SystemExit, match="--model_parallel 2 must divide the device count 1"):
             train_ssl.main(_argv(tmp_path, *flags))
-    else:
-        train_ssl.refuse_unported(args)
-    assert [flag for flag, _, _ in train_ssl._UNPORTED] == ["model_parallel"]
+    assert train_ssl._UNPORTED == ()
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch, tmp_path):
