@@ -56,6 +56,13 @@ exits non-zero and prints no result:
    Prints ms a step of 1 rank, of the NCCL rank and of 2 gloo ranks; two
    ranks sharing a card all-reduce through the host, so the last is no
    measure of multi-card scaling.
+7c. space_steps: depth sharding (``--space_shards``). The 3D step cases
+   (GroupNorm, then BatchNorm) in 2 gloo ranks on ``cuda:0`` laid out as
+   (data, space) = (1, 2): each rank takes its depth slab (16 of 32) of the
+   whole global batch of 4, halo-exchanges every 3³ convolution with the
+   other and sums GroupNorm statistics with it; held against the dist
+   phase's one-process steps as dist_<case> is, the ranks equal to the bit.
+   Prints the f32 halo bytes a step, computed from the shapes.
 8. seg_train: writes paired raw 224² stores (512 train, 128 val, 128 test
    slices with disk masks) and runs the segmentation trainer's entry point
    at full width (resnet18 U-Net, decoder (256,128,64,32,16), batch 64,
@@ -182,6 +189,20 @@ kernel lies on this path, and the run fails if one is launched in it.
    (Z, X, Y) volume (≥ 99.9% of voxels), and on a volume of exactly one
    window the f32 sliding-window logits against the plain eval forward
    (1e-5 of the largest logit). Prints megavoxels a second.
+- multicard_3d: ``mis-predict3d-torch`` on those four volumes with two
+   replicas of the network on ``cuda:0`` against one device, in turns
+   (one, two, two, one): masks equal or the voxels that differ, one
+   volume's largest logit difference (loop over two replicas against the
+   fused predictor), megavoxels a second of both routes. multicard_2d (after
+   fused2d) does the same for ``mis-predict-torch``: batched on 64 slices
+   of 512², ``--sliding_window 224`` on 16. No kernel is launched.
+- space: ``mis-train-segmentation3d-torch --space_shards 2`` at the
+   defaults above in bf16, 2 gloo ranks sharing the card, 2 epochs × 4
+   steps: ranks equal to the bit, finite losses, one checkpoint (rank 0's),
+   ms a step, the bf16 halo bytes a step; then ``--resume`` of that
+   checkpoint in this process under ``--space_shards 1`` for one more epoch.
+   No kernel is launched. Two ranks on one card exchange through the host:
+   no measure of multi-card scaling.
 22. seg3d_step: device-resident augmentation + step by CUDA events at batch
    4 and batch 32, the FLOPs of a step, the peak device memory with and
    without remat (loss equal to 1e-6), the step's kernel count and device
@@ -193,7 +214,8 @@ the training steps run in bf16 under autocast, which TF32 does not touch.
 The device line also says whether ``triton`` imports (information only: the
 port needs none). The last lines are the card, the kernels' JSON record (with
 ``launches_data_parallel_path``, the kernel launches of each rank in
-dist_train, and ``launches_nccl_path``) and ``{"ok": true, "device":
+dist_train, ``launches_nccl_path``, and ``launches_space_path`` and
+``launches_multicard_path``, which must be 0) and ``{"ok": true, "device":
 {...}}``. The run also fails if the port loaded
 ``jax`` or any module of the JAX package.
 
@@ -2340,9 +2362,10 @@ def dist_batches(torch, case: str, device, scale: float = 1.0):
 
 def dist_case(torch, case: str, mesh, device, scale: float = 1.0) -> dict:
     """Two f32 steps of ``case`` from the seeded initial weights, this
-    rank's rows of the global batches (all of them without a mesh): the
-    losses and the whole state on the CPU."""
-    from medical_image_segmentation_tpu_torch.parallel.mesh import data_rows
+    rank's rows (and, for the 3D cases, depth slab) of the global batches
+    (all of them without a mesh): the losses and the whole state on the
+    CPU."""
+    from medical_image_segmentation_tpu_torch.parallel.mesh import data_rows, depth_slab
     from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
     from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
     from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
@@ -2358,6 +2381,9 @@ def dist_case(torch, case: str, mesh, device, scale: float = 1.0) -> dict:
     losses = []
     for batch in dist_batches(torch, case, device, scale):
         rows = data_rows(mesh, batch[0].shape[0])
+        if case.startswith("seg3d"):
+            slab = depth_slab(mesh, batch[0].shape[1])
+            batch = tuple(t[:, slab] for t in batch)
         m = task.train_step(*(t[rows] for t in batch))
         losses.append(float(m["loss" if case in ("byol", "tp") else "train/loss"]))
     state = task.state_dict()
@@ -2367,14 +2393,16 @@ def dist_case(torch, case: str, mesh, device, scale: float = 1.0) -> dict:
 
 
 def dist_config() -> dict:
-    """The module's DIST_* settings, which a spawned rank takes over."""
-    return {k: v for k, v in globals().items() if k.startswith("DIST_") and k.isupper()}
+    """The module's DIST_* and SPACE_* settings, which a spawned rank takes
+    over."""
+    return {k: v for k, v in globals().items() if k.startswith(("DIST_", "SPACE_")) and k.isupper()}
 
 
-def _dist_rank(rank: int, port: int, out_path: str, config: dict) -> None:
+def _dist_rank(rank: int, port: int, out_path: str, config: dict, space: int = 1) -> None:
     """One rank of the step cases: joins a gloo group of DIST_RANKS ranks on
     the one card and runs every case (the ``tp`` case on a (data=1,
-    model=DIST_RANKS) mesh)."""
+    model=DIST_RANKS) mesh); with ``space`` > 1 the 3D cases of
+    SPACE_CASES on a (data, space) = (DIST_RANKS / space, space) mesh."""
     globals().update(config)
     os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(DIST_RANKS), "LOCAL_RANK": str(rank),
                        "LOCAL_WORLD_SIZE": str(DIST_RANKS), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
@@ -2389,13 +2417,21 @@ def _dist_rank(rank: int, port: int, out_path: str, config: dict) -> None:
 
     try:
         proc = initialize_distributed(DIST_DEVICE)
-        dp = make_mesh(device=proc.device)
-        tp = make_mesh(("data", "model"), (1, DIST_RANKS), device=proc.device)
+        if space > 1:
+            mesh = make_mesh(("data", "space"), (DIST_RANKS // space, space), device=proc.device)
+            meshes = {case: mesh for case in SPACE_CASES}
+        else:
+            dp = make_mesh(device=proc.device)
+            tp = make_mesh(("data", "model"), (1, DIST_RANKS), device=proc.device)
+            meshes = {case: tp if case == "tp" else dp for case in DIST_CASES}
         out = {"backend": proc.backend, "device": str(proc.device), "sharing": proc.ranks_per_device}
-        for case in DIST_CASES:
+        from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
+
+        for case, mesh in meshes.items():
             t0 = time.time()
-            out[case] = dist_case(torch, case, tp if case == "tp" else dp, proc.device)
+            out[case] = dist_case(torch, case, mesh, proc.device)
             out[case]["seconds"] = time.time() - t0
+        out["launches"] = fa.fused_two_view_augment.launches
         torch.save(("ok", out), out_path)
     except BaseException:
         import traceback
@@ -2418,24 +2454,59 @@ def _group_err(a, b, keys) -> float:
             / max(float(b[k].abs().max()) for k in keys))
 
 
-def run_dist_steps(torch, workdir: str, card: str) -> None:
+def spawn_dist_ranks(workdir: str, name: str, space: int = 1):
+    """DIST_RANKS spawned ``_dist_rank`` processes; returns them and their
+    result paths."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    paths = [os.path.join(workdir, f"{name}_rank{r}.pt") for r in range(DIST_RANKS)]
+    procs = [ctx.Process(target=_dist_rank, args=(r, port, paths[r], dist_config(), space))
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    return procs, paths
+
+
+def join_dist_ranks(torch, procs, paths, name: str) -> list:
+    """The ranks' results, once each rank finished and reported gloo on the
+    shared card; fails on a rank that hung, died or raised."""
+    for p in procs:
+        p.join(600)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    check(not alive, f"{len(alive)} {name} ranks did not finish")
+    ranks = []
+    for r, path in enumerate(paths):
+        check(os.path.exists(path), f"{name} rank {r} exited with code {procs[r].exitcode} and no result")
+        status, value = torch.load(path, weights_only=False)
+        check(status == "ok", f"{name} rank {r} failed:\n{value}")
+        ranks.append(value)
+    on_card = DIST_DEVICE == "cuda"
+    check(all(r["backend"] == "gloo" and r["device"] == ("cuda:0" if on_card else DIST_DEVICE) and
+              r["sharing"] == (DIST_RANKS if on_card else 1) for r in ranks),
+          f"{name} ranks ran on {[(r['backend'], r['device'], r['sharing']) for r in ranks]}")
+    return ranks
+
+
+def run_dist_steps(torch, workdir: str, card: str, space: int = 1):
     """The step cases in DIST_RANKS gloo ranks sharing the card, against one
     process on the whole batch. Parameters and statistics per group within
     three times the one-process step's own spread under a 1e-6 change of
     the input, and never looser than 1e-3 is needed (the card/CPU parity
     phases' rule: the ranks' convolutions run at half the batch, where
     cuDNN may sum in another order, and BatchNorm biases have gradients of
-    rounding noise); step-1 losses to 1e-4; the ranks equal to the bit."""
-    import multiprocessing as mp
-
+    rounding noise); step-1 losses to 1e-4; the ranks equal to the bit.
+    ``space`` > 1 also starts the depth-sharded ranks of ``space_steps``
+    (they run beside these; their start-up is most of their time). Returns
+    the one-process references (and their spreads) by case, and the
+    depth-sharded ranks (or None)."""
     torch.cuda.empty_cache()
-    ctx = mp.get_context("spawn")
-    port = free_port()
-    paths = [os.path.join(workdir, f"dist_rank{r}.pt") for r in range(DIST_RANKS)]
     t0 = time.time()
-    procs = [ctx.Process(target=_dist_rank, args=(r, port, paths[r], dist_config())) for r in range(DIST_RANKS)]
-    for p in procs:
-        p.start()
+    procs, paths = spawn_dist_ranks(workdir, "dist")
+    space_ranks = spawn_dist_ranks(workdir, "space", space) if space > 1 else None
     # the one-process references meanwhile (the ranks' host-side all-reduces leave the card idle)
     refs = {}
     for case in DIST_CASES:
@@ -2443,45 +2514,40 @@ def run_dist_steps(torch, workdir: str, card: str) -> None:
             continue  # the tensor-parallel step is held against the replicated BYOL step
         refs[case] = (dist_case(torch, case, None, DIST_DEVICE), dist_case(torch, case, None, DIST_DEVICE, 1 + 1e-6))
     torch.cuda.empty_cache()
-    for p in procs:
-        p.join(600)
-    alive = [p for p in procs if p.is_alive()]
-    for p in alive:
-        p.kill()
-    check(not alive, f"{len(alive)} dist ranks did not finish")
-    ranks = []
-    for r, path in enumerate(paths):
-        check(os.path.exists(path), f"dist rank {r} exited with code {procs[r].exitcode} and no result")
-        status, value = torch.load(path, weights_only=False)
-        check(status == "ok", f"dist rank {r} failed:\n{value}")
-        ranks.append(value)
+    ranks = join_dist_ranks(torch, procs, paths, "dist")
     ranks_s = time.time() - t0
-    on_card = DIST_DEVICE == "cuda"
-    check(all(r["backend"] == "gloo" and r["device"] == ("cuda:0" if on_card else DIST_DEVICE) and
-              r["sharing"] == (DIST_RANKS if on_card else 1) for r in ranks),
-          f"ranks ran on {[(r['backend'], r['device'], r['sharing']) for r in ranks]}")
-    for case in DIST_CASES:
+    hold_dist_cases(torch, "dist", ranks, refs, DIST_CASES)
+    phase("dist_steps", ranks=DIST_RANKS, backend="gloo", ranks_seconds=round(ranks_s, 2), card=repr(card))
+    return refs, space_ranks
+
+
+def hold_dist_cases(torch, name: str, ranks: list, refs: dict, cases) -> dict:
+    """Each case of the ranks against its one-process reference; prints a
+    ``<name>_<case>`` line each and returns their fields."""
+    out = {}
+    for case in cases:
         one, spread = refs["byol" if case == "tp" else case]
         fields = dict(ranks=DIST_RANKS, rank_seconds=round(ranks[0][case]["seconds"], 2),
                       losses=ranks[0][case]["losses"], one_process_losses=one["losses"])
         loss_rel = abs(ranks[0][case]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
-        check(loss_rel <= 1e-4, f"dist {case}: step-1 loss {ranks[0][case]['losses'][0]} vs {one['losses'][0]}")
+        check(loss_rel <= 1e-4, f"{name} {case}: step-1 loss {ranks[0][case]['losses'][0]} vs {one['losses'][0]}")
         fields["loss_rel"] = loss_rel
         for side, sd in one["state"].items():
             for r in ranks[1:]:
                 check(all(torch.equal(r[case]["state"][side][k], ranks[0][case]["state"][side][k]) for k in sd),
-                      f"dist {case}: the ranks' {side} states differ")
+                      f"{name} {case}: the ranks' {side} states differ")
             stats = [k for k in sd if "running_" in k]
             for group, keys in (("params", [k for k in sd if k not in stats]), ("stats", stats)):
                 if not keys:
                     continue
                 err = _group_err(ranks[0][case]["state"][side], sd, keys)
                 own = _group_err(spread["state"][side], sd, keys)
-                check(err <= max(1e-3, 3 * own), f"dist {case}: {side} {group} {err} (one-process spread {own})")
+                check(err <= max(1e-3, 3 * own), f"{name} {case}: {side} {group} {err} (one-process spread {own})")
                 fields[f"{side}_{group}_rel"] = err
                 fields[f"{side}_{group}_spread"] = own
-        phase(f"dist_{case}", **fields)
-    phase("dist_steps", ranks=DIST_RANKS, backend="gloo", ranks_seconds=round(ranks_s, 2), card=repr(card))
+        phase(f"{name}_{case}", **fields)
+        out[case] = fields
+    return out
 
 
 DIST_TRAIN_RUNNER = r"""
@@ -2680,12 +2746,15 @@ def run_dist_nccl(torch, fa, workdir: str, card: str) -> dict:
     return {"plain": plain["ms"], "nccl": nccl["ms"], "launches": nccl["launches"]}
 
 
-def run_dist(torch, fa, workdir: str, card: str) -> dict:
-    """The data-parallel phases: the step cases, the trainer in two gloo
-    ranks and in a one-rank NCCL group. Returns the kernel launches of each
-    rank of the two-rank trainer and of the NCCL run."""
+def run_dist(torch, fa, workdir: str, card: str):
+    """The data-parallel phases: the step cases (and beside them the
+    depth-sharded 3D steps, ``space_steps``), the trainer in two gloo ranks
+    and in a one-rank NCCL group. Returns the kernel launches of each rank
+    of the two-rank trainer and of the NCCL run, and the fields of the
+    depth-sharded steps."""
     t0 = time.time()
-    run_dist_steps(torch, workdir, card)
+    refs, space_ranks = run_dist_steps(torch, workdir, card, SPACE_RANKS)
+    space_fields = run_space_steps(torch, refs, space_ranks, card)
     recs = run_dist_train(torch, fa, workdir, card)
     ms = run_dist_nccl(torch, fa, workdir, card)
     phase("dist", seconds=round(time.time() - t0, 2), ms_per_step_1_rank=ms["plain"],
@@ -2695,7 +2764,283 @@ def run_dist(torch, fa, workdir: str, card: str) -> dict:
     return {"launches_data_parallel_path": [r["launches"] for r in recs], "launches_nccl_path": ms["launches"],
             "data_parallel_kernel_batch": recs[0]["kernel_batch"], "data_parallel_ms": recs[0]["kernel_ms"],
             "data_parallel_bound_ms": recs[0]["bound_ms"],
-            "data_parallel_max_bf16_ulp": max(r["kernel_max_bf16_ulp"] for r in recs)}
+            "data_parallel_max_bf16_ulp": max(r["kernel_max_bf16_ulp"] for r in recs)}, space_fields
+
+
+# ------------------------------------------------- depth sharding, replicas
+
+SPACE_RANKS = 2                                       # one space group of DIST_RANKS ranks: (data, space) = (1, 2)
+SPACE_CASES = ("seg3d_group", "seg3d_batch")
+SPACE_EPOCHS, SPACE_STEPS = 2, 4
+MULTI_DEVICES = ("cuda:0", "cuda:0")                  # two replicas on the one card
+MULTI_BATCHED_SLICES = 64
+
+
+def halo_bytes(features, crop, batch: int, space: int, itemsize: int, in_channels: int = 1) -> dict:
+    """Bytes of the halo slot buffers one rank all-reduces in a ``UNet3D``
+    step (forward and backward), from the shapes: each sharded convolution
+    all-reduces (space, batch, left + right, H, W, C_in) values; and what
+    point-to-point transfers would move (each rank's left + right slices)."""
+    n = len(features)
+    convs = []                                   # (level, C_in, left + right)
+    for i, f in enumerate(features):
+        convs += [(i, in_channels if i == 0 else features[i - 1], 2), (i, f, 2)]
+        if i < n - 1:
+            convs.append((i, f, 1))              # down{i}: one slice on the left
+    for i in reversed(range(n - 1)):
+        convs += [(i, features[i + 1] + features[i], 2), (i, features[i], 2)]
+    per_pass = sum(space * batch * lr * (crop[1] >> lvl) * (crop[2] >> lvl) * c * itemsize for lvl, c, lr in convs)
+    return {"slot_bytes_per_step": 2 * per_pass, "point_to_point_bytes_per_step": 2 * per_pass // space,
+            "sharded_convolutions": len(convs)}
+
+
+def run_space_steps(torch, refs: dict, space_ranks, card: str) -> dict:
+    """The 3D step cases (GroupNorm, then BatchNorm) in DIST_RANKS gloo
+    ranks sharing the card on a (data, space) = (1, SPACE_RANKS) mesh
+    (``space_ranks``, started by ``run_dist_steps``), each rank on its depth
+    slab of the whole global batch, against the dist phase's one-process
+    steps on the whole batch, held as those are."""
+    t0 = time.time()
+    ranks = join_dist_ranks(torch, *space_ranks, "space")
+    fields = hold_dist_cases(torch, "space", ranks, refs, SPACE_CASES)
+    check(all(r["launches"] == 0 for r in ranks), f"space step ranks launched two_view_augment "
+                                                  f"{[r['launches'] for r in ranks]} times")
+    halo = halo_bytes(DIST_SEG3D["features"], DIST_SEG3D_CROP, DIST_SEG3D_BATCH, SPACE_RANKS, 4)
+    phase("space_steps", ranks=DIST_RANKS, mesh=f"(data, space) = (1, {SPACE_RANKS})", backend="gloo",
+          join_seconds=round(time.time() - t0, 2), f32_halo=halo, launches=[r["launches"] for r in ranks],
+          card=repr(card))
+    return {"cases": fields, "launches": sum(r["launches"] for r in ranks)}
+
+
+SPACE_TRAIN_RUNNER = r"""
+import hashlib, json, os, sys, time
+root, out_path = sys.argv[1:3]
+sys.path.insert(0, root)
+import torch
+from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
+from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
+from medical_image_segmentation_tpu_torch.train import train_segmentation3d
+
+try:
+    t0 = time.time()
+    result = train_segmentation3d.run(sys.argv[3:])
+    if result.task.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    digest = hashlib.sha256()
+    for k, v in result.task.model.state_dict().items():
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().contiguous().numpy().tobytes())
+    steady = result.epochs[1:] or result.epochs
+    out = {"ok": True, "rank": int(os.environ["RANK"]), "launches": fa.fused_two_view_augment.launches,
+           "steps": result.task.step, "losses": [float(x) for x in result.losses], "digest": digest.hexdigest(),
+           "ms_per_step": 1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady),
+           "wall_s": wall, "val": result.val, "test": result.test, "checkpoint": result.checkpoint,
+           "hbm": result.hbm}
+except BaseException:
+    import traceback
+    out = {"ok": False, "error": traceback.format_exc()}
+finally:
+    shutdown_distributed()
+with open(out_path, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def run_space_train(torch, fa, root: str, workdir: str, steps: dict, card: str) -> int:
+    """``mis-train-segmentation3d-torch --space_shards SPACE_RANKS`` in bf16
+    at full width in DIST_RANKS gloo ranks sharing the card, SPACE_EPOCHS ×
+    SPACE_STEPS steps: the ranks end equal to the bit with finite losses,
+    only rank 0 writes the checkpoint; then ``--resume`` of that checkpoint
+    in this process under ``--space_shards 1`` for one more epoch. Prints
+    the ``space`` line with ``steps`` (what ``run_space_steps`` returned).
+    Returns the kernel launches on this path."""
+    from medical_image_segmentation_tpu_torch.train import train_segmentation3d
+
+    before = fa.fused_two_view_augment.launches
+    t0 = time.time()
+    port = free_port()
+    n_steps = SPACE_EPOCHS * SPACE_STEPS
+    argv = vol_argv(root, workdir, "space", "--space_shards", str(SPACE_RANKS), "--max_epochs", str(SPACE_EPOCHS),
+                    "--limit_steps_per_epoch", str(SPACE_STEPS), "--checkpoint_every_epochs", str(SPACE_EPOCHS))
+    outs = [os.path.join(workdir, f"space_train{r}.json") for r in range(DIST_RANKS)]
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    procs = [subprocess.Popen([sys.executable, "-c", SPACE_TRAIN_RUNNER, ROOT, outs[r], *argv], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env={**env, "RANK": str(r), "WORLD_SIZE": str(DIST_RANKS), "LOCAL_RANK": str(r),
+                                   "LOCAL_WORLD_SIZE": str(DIST_RANKS), "MASTER_ADDR": "127.0.0.1",
+                                   "MASTER_PORT": str(port)})
+             for r in range(DIST_RANKS)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=600)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    recs = []
+    for r, (p, path) in enumerate(zip(procs, outs)):
+        check(os.path.exists(path), f"space train rank {r} exited with code {p.returncode}:\n{errs[r][-3000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        check(rec["ok"], f"space train rank {r} failed:\n{rec.get('error')}")
+        check(f"process {r}/{DIST_RANKS}:" in errs[r] and "backend gloo" in errs[r],
+              f"space rank {r} printed no gloo process line")
+        check(rec["steps"] == n_steps and len(rec["losses"]) == n_steps and
+              all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in rec["losses"]),
+              f"space rank {r}: {rec['steps']} steps, losses {rec['losses']}")
+        check(rec["launches"] == 0, f"space rank {r} launched two_view_augment {rec['launches']} times")
+        recs.append(rec)
+    check(len({rec["digest"] for rec in recs}) == 1 and recs[0]["losses"] == recs[1]["losses"],
+          "the space ranks' parameters or losses differ")
+    ckpt_dir = os.path.join(workdir, "space", "ckpt")
+    check(sorted(os.listdir(ckpt_dir)) == [f"{n_steps}.pt"], f"checkpoints written: {os.listdir(ckpt_dir)}")
+    ranks_s = time.time() - t0
+
+    # the checkpoint of the depth-sharded run resumes in one process, unsharded
+    t1 = time.time()
+    resumed = train_segmentation3d.run(vol_argv(root, workdir, "space", "--resume", "--space_shards", "1",
+                                                "--max_epochs", str(SPACE_EPOCHS + 1),
+                                                "--limit_steps_per_epoch", str(SPACE_STEPS)))
+    torch.cuda.synchronize()
+    resume_s = time.time() - t1
+    more = [float(x) for x in resumed.losses]
+    check(resumed.resumed_from == n_steps and resumed.task.step == n_steps + SPACE_STEPS and len(more) == SPACE_STEPS
+          and all(math.isfinite(x) for x in more), f"resume under one space shard: from {resumed.resumed_from}, "
+                                                    f"step {resumed.task.step}, losses {more}")
+    launches = fa.fused_two_view_augment.launches - before
+    check(launches == 0, f"the space path launched two_view_augment {launches} times in this process")
+    halo = halo_bytes(VOL_FEATURES, VOL_CROP, VOL_BATCH, SPACE_RANKS, 2)
+    r0 = recs[0]
+    phase("space", ranks=DIST_RANKS, space_shards=SPACE_RANKS, steps=n_steps, losses=[round(x, 4) for x in r0["losses"]],
+          ms_per_step=[round(r["ms_per_step"], 2) for r in recs], vol_per_s=VOL_BATCH * 1000.0 / r0["ms_per_step"],
+          wall_s=[round(r["wall_s"], 2) for r in recs], ranks_seconds=round(ranks_s, 2),
+          val=r0["val"], test=r0["test"], guard_peak_gib=r0["hbm"]["projected_peak"] / 2**30 if r0["hbm"] else None,
+          bf16_halo=halo, halo_mb_per_step=halo["slot_bytes_per_step"] / 1e6,
+          resumed_one_shard_from=resumed.resumed_from, resumed_losses=[round(x, 4) for x in more],
+          resume_s=round(resume_s, 2),
+          group_steps={case: {k: v for k, v in f.items() if k.endswith(("_rel", "_spread"))}
+                       for case, f in steps["cases"].items()},
+          launches=[r["launches"] for r in recs] + [launches],
+          note="two ranks share one card and all-reduce through the host (gloo): no measure of multi-card scaling",
+          card=repr(card))
+    return launches
+
+
+def _diff(a, b) -> dict:
+    """Masks differing and the largest |logit| difference of two logit
+    tensors."""
+    return {"masks_differing": int(((a > 0) != (b > 0)).sum()), "max_abs_logit_diff": float((a - b).abs().max())}
+
+
+def run_multicard_2d(torch, fa, workdir: str, ckpt: str, card: str) -> int:
+    """Replicas MULTI_DEVICES against one card on seg_train's checkpoint: the
+    logits of a batch of MULTI_BATCHED_SLICES 224² slices and of one 512²
+    slice through the sliding-window loop (two devices) against the fused
+    predictor (one); then ``mis-predict-torch`` batched on
+    MULTI_BATCHED_SLICES slices of 512² and ``--sliding_window`` on the 16
+    slices, one device and two in turns (one, two, two, one): equal masks or
+    the pixels that differ, images a second. Returns the kernel launches."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
+    from medical_image_segmentation_tpu_torch.data.store import CODEC_RAW, StoreWriter
+    from medical_image_segmentation_tpu_torch.eval.sliding_window import (
+        make_fused_predictor_2d, sliding_window_predict,
+    )
+    from medical_image_segmentation_tpu_torch.serve import normalize_u8
+    from medical_image_segmentation_tpu_torch.train import predict
+    from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
+
+    before = fa.fused_two_view_augment.launches
+    devices = [torch.device(d) for d in MULTI_DEVICES]
+    dm = get_datamodule(SEG_DATASET)()
+    task = SegmentationTask(device=SEG_DEVICE)
+    task.model.load_state_dict(torch.load(ckpt, map_location=SEG_DEVICE, weights_only=True)["model"])
+    replicas = task.replicas(devices)
+    slices = [img for img, _ in disk_slices(np.random.default_rng(1), MULTI_BATCHED_SLICES, PREDICT_SIZE)]
+    batch = np.stack([predict._resize_nearest(img, (SEG_SIZE, SEG_SIZE)) for img in slices])
+    x = normalize_u8(torch.from_numpy(batch[..., None]).to(SEG_DEVICE), dm.mean, dm.std)
+    fields = {"batched_logits": _diff(replicas(x), task.logits(x))}
+    xs = normalize_u8(torch.from_numpy(slices[0][..., None]).to(SEG_DEVICE), dm.mean, dm.std)
+    fused = make_fused_predictor_2d(task.logits, xs.shape, SEG_SIZE, device=SEG_DEVICE)
+    fused(xs)
+    fields["sliding_logits"] = _diff(sliding_window_predict(replicas, xs, SEG_SIZE, devices=devices), fused(xs))
+
+    store = os.path.join(workdir, "multicard_batched.mis")
+    with StoreWriter(store, channels=1) as w:
+        for img in slices:
+            w.add(img[..., None], codec=CODEC_RAW)
+    base = ["--checkpoint", os.path.dirname(ckpt), "--device", SEG_DEVICE, "--dataset", SEG_DATASET,
+            "--image_size", str(SEG_SIZE), "--batch_size", str(SEG_BATCH), "--num_workers", "8"]
+    for mode, extra, n in (("batched", ["--image_store", store], MULTI_BATCHED_SLICES),
+                           ("sliding", ["--image_store", os.path.join(workdir, "predict_sliding.mis"),
+                                        "--sliding_window", str(SEG_SIZE)], SLIDING_SLICES)):
+        rates, masks = {1: [], 2: []}, {}
+        for i, n_dev in enumerate((1, 2, 2, 1)):
+            out_dir = os.path.join(workdir, f"multicard_{mode}_{i}")
+            out = predict.run([*base, *extra, "--output_dir", out_dir], devices=devices[:n_dev])
+            check(out["images"] == n and out["devices"] == n_dev, f"multicard {mode} turn {i}: {out}")
+            rates[n_dev].append(out["images"] / out["seconds"])
+            masks.setdefault(n_dev, served_masks(out_dir))
+        differing = sum(int((m != masks[1][k]).sum()) for k, m in masks[2].items())
+        fields[f"{mode}_masks_differing_pixels"] = differing
+        fields[f"{mode}_img_per_s_one_device"] = [round(r, 2) for r in rates[1]]
+        fields[f"{mode}_img_per_s_two_replicas"] = [round(r, 2) for r in rates[2]]
+    launches = fa.fused_two_view_augment.launches - before
+    check(launches == 0, f"the multi-device serving path launched two_view_augment {launches} times")
+    phase("multicard_2d", devices=[str(d) for d in devices], batched_slices=MULTI_BATCHED_SLICES,
+          sliding_slices=SLIDING_SLICES, **fields, launches=launches,
+          note="two replicas on one card: the split and gather run, no second card to gain from", card=repr(card))
+    return launches
+
+
+def run_multicard_3d(torch, fa, root: str, workdir: str, ckpt: str, card: str) -> int:
+    """The same for ``mis-predict3d-torch`` on seg3d_train's checkpoint and the four
+    160×160×80 volumes: one volume's logits through the loop over two
+    replicas against the fused predictor, then the CLI in turns (one, two,
+    two, one): equal masks or the voxels that differ, megavoxels a second.
+    Returns the kernel launches."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.nifti import read_nifti
+    from medical_image_segmentation_tpu_torch.data.volumes import minmax_unit, read_volume
+    from medical_image_segmentation_tpu_torch.eval.sliding_window import (
+        make_fused_predictor_3d, sliding_window_predict_3d,
+    )
+    from medical_image_segmentation_tpu_torch.serve import normalize_unit
+    from medical_image_segmentation_tpu_torch.train import predict3d
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+
+    before = fa.fused_two_view_augment.launches
+    devices = [torch.device(d) for d in MULTI_DEVICES]
+    task = Segmentation3DTask(features=VOL_FEATURES, device=VOL_DEVICE)
+    task.model.load_state_dict(torch.load(ckpt, map_location=VOL_DEVICE, weights_only=True)["model"])
+    serve = os.path.join(root, "serve")
+    vol = minmax_unit(read_volume(os.path.join(serve, sorted(os.listdir(serve))[0])))
+    x = normalize_unit(torch.from_numpy(vol[..., None]).to(VOL_DEVICE), 0.2089, 0.2109)
+    fused = make_fused_predictor_3d(task.logits, x.shape, VOL_CROP, batch_windows=VOL_BATCH, device=VOL_DEVICE)
+    fused(x)
+    fields = {"volume_logits": _diff(sliding_window_predict_3d(task.replicas(devices), x, VOL_CROP,
+                                                               batch_windows=VOL_BATCH, devices=devices), fused(x))}
+    argv = ["--checkpoint", os.path.dirname(ckpt), "--features", *map(str, VOL_FEATURES), "--images_dir", serve,
+            "--window", *map(str, VOL_CROP), "--batch_windows", str(VOL_BATCH), "--device", VOL_DEVICE]
+    rates, masks = {1: [], 2: []}, {}
+    for i, n_dev in enumerate((1, 2, 2, 1)):
+        out_dir = os.path.join(workdir, f"multicard3d_{i}")
+        out = predict3d.run([*argv, "--output_dir", out_dir], devices=devices[:n_dev])
+        check(out["volumes"] == len(VOL_PREDICT) and out["devices"] == n_dev, f"multicard 3D turn {i}: {out}")
+        rates[n_dev].append(out["value"])
+        masks.setdefault(n_dev, {f: read_nifti(os.path.join(out_dir, f)).get_fdata() for f in sorted(os.listdir(out_dir))})
+    differing = sum(int((m != masks[1][k]).sum()) for k, m in masks[2].items())
+    launches = fa.fused_two_view_augment.launches - before
+    check(launches == 0, f"the multi-device volumetric serving path launched two_view_augment {launches} times")
+    phase("multicard_3d", devices=[str(d) for d in devices], volumes=len(VOL_PREDICT), **fields,
+          masks_differing_voxels=differing, mvox_per_s_one_device=rates[1], mvox_per_s_two_replicas=rates[2],
+          launches=launches, note="two replicas on one card: the split and gather run, no second card to gain from",
+          card=repr(card))
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2747,7 +3092,9 @@ def main(argv=None) -> int:
             task, launches, ssl_ckpt = run_trainer(torch, fa, workdir, card)
             run_step_timing(torch, fa, task, card)
             del task
-            dist_record = run_dist(torch, fa, workdir, card)
+            # the depth-sharded steps run beside dist's; no TPU kernel lies on their path
+            dist_record, space_steps = run_dist(torch, fa, workdir, card)
+            space_launches = space_steps["launches"]
             seg_ckpt = run_seg_train(torch, workdir, ssl_ckpt, card)
             run_predict(torch, workdir, seg_ckpt, card)
             # the serving path: no TPU kernel lies on it, so none is launched
@@ -2755,6 +3102,7 @@ def main(argv=None) -> int:
             run_export(torch, workdir, seg_ckpt, card)
             run_fused2d(torch, workdir, seg_ckpt, card)
             serving_launches = fa.fused_two_view_augment.launches - before
+            multicard_launches = run_multicard_2d(torch, fa, workdir, seg_ckpt, card)
             run_seg_step(torch, card)
             run_precrop(torch, fa, workdir, card)
             run_resume(torch, fa, workdir, card)
@@ -2784,14 +3132,21 @@ def main(argv=None) -> int:
             run_fused3d(torch, root, workdir, seg3d_ckpt, window_art, card)
             serving_launches += fa.fused_two_view_augment.launches - vol_launches
             fa.fused_two_view_augment.launches = vol_launches
+            multicard_launches += run_multicard_3d(torch, fa, root, workdir, seg3d_ckpt, card)
+            space_launches += run_space_train(torch, fa, root, workdir, space_steps, card)
+            fa.fused_two_view_augment.launches = vol_launches
         run_seg3d_step(torch, card)
         vol_launches = fa.fused_two_view_augment.launches
         check(vol_launches == 0, f"the volumetric path launched two_view_augment {vol_launches} times")
         check(serving_launches == 0, f"the serving path launched two_view_augment {serving_launches} times")
+        check(space_launches == 0, f"the depth-sharded path launched two_view_augment {space_launches} times")
+        check(multicard_launches == 0, f"the multi-device path launched two_view_augment {multicard_launches} times")
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches,
                                      "launches_volumetric_path": vol_launches,
                                      "launches_serving_path": serving_launches,
+                                     "launches_space_path": space_launches,
+                                     "launches_multicard_path": multicard_launches,
                                      "launches_ingest_path": ingest_launches,
                                      "launches_parity_path": parity_launches, **dist_record,
                                      **kernel_record}])

@@ -5,7 +5,8 @@ has no such plan: it allocates as it goes and fails mid-step. So the guard
 runs the step once as a probe, at the run's batch shape, before training,
 and reads ``torch.cuda.max_memory_allocated``. A probe that runs out of
 memory, or whose peak exceeds the card's memory, refuses the run with the
-levers a user can turn (a smaller ``--batch_size``, ``--remat``), unless
+levers a user can turn (a smaller ``--batch_size``, ``--remat``, a wider
+``--space_shards``), unless
 ``--force_hbm`` turns the refusal into a warning.
 
 The probe must not be a hidden training step: ``preserved`` puts back the
@@ -100,8 +101,8 @@ def check_hbm(mem: Optional[Dict[str, Any]], label: str = "step", force: bool = 
     if mem.get("oversubscribed"):
         advice = (
             f"{label}: projected peak exceeds device memory — on the card the step "
-            "runs out of memory mid-run. Lower --batch_size or enable --remat; "
-            "pass --force_hbm to run anyway."
+            "runs out of memory mid-run. Lower --batch_size, enable --remat, or shard "
+            "wider (--space_shards); pass --force_hbm to run anyway."
         )
         if force:
             print(f"WARNING (forced): {advice}", file=file)

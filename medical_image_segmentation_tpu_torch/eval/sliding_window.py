@@ -11,7 +11,11 @@ a whole number of batches by repeating its last window, so every forward
 sees one shape; the repeats are not blended.
 
 ``count_windows`` and ``count_windows_3d`` are the one place each window
-count is computed. The 3D functions tile (D, H, W) volumes the same way,
+count is computed. ``devices`` (the JAX ``mesh=``, ``:84-91,294-301``
+there) names the devices ``apply_fn`` splits each window batch over, a
+``parallel/replicas.py::Replicas``'; the loop then rounds the window batch
+up to a multiple of their count, and extraction and blending stay on the
+input's device, the first of them. The 3D functions tile (D, H, W) volumes the same way,
 with a window and a stride per axis.
 
 Two variants. ``sliding_window_predict`` / ``sliding_window_predict_3d``
@@ -77,6 +81,12 @@ def count_windows(h: int, w: int, window: int, stride: int = 0) -> int:
     return len(window_grid(h, w, window, stride))
 
 
+def _per_devices(batch_windows: int, devices: Sequence) -> int:
+    """``batch_windows`` rounded up to a multiple of the device count."""
+    n = max(1, len(devices))
+    return -(-batch_windows // n) * n
+
+
 def sliding_window_predict(
     apply_fn: Callable[[torch.Tensor], torch.Tensor],  # (N, S, S, C) → (N, S, S, K) logits
     image: torch.Tensor,                                # (H, W, C), already normalized
@@ -84,8 +94,10 @@ def sliding_window_predict(
     stride: int = 0,
     batch_windows: int = 16,
     num_classes: int = 1,
+    devices: Sequence = (),
 ) -> torch.Tensor:
     """Full-resolution (H, W, K) f32 logits on ``image``'s device."""
+    batch_windows = _per_devices(batch_windows, devices)
     orig_h, orig_w, _ = image.shape
     pad_h, pad_w = max(window - orig_h, 0), max(window - orig_w, 0)
     if pad_h or pad_w:
@@ -133,8 +145,10 @@ def sliding_window_predict_3d(
     stride: Optional[Sequence[int]] = None,             # (d, h, w); default window // 2
     batch_windows: int = 4,
     num_classes: int = 1,
+    devices: Sequence = (),
 ) -> torch.Tensor:
     """Full-resolution (D, H, W, K) f32 logits on ``volume``'s device."""
+    batch_windows = _per_devices(batch_windows, devices)
     wd, wh, ww = window = tuple(window)
     orig = tuple(volume.shape[:3])
     pads = [max(w - o, 0) for w, o in zip(window, orig)]

@@ -25,6 +25,19 @@ f32 and every following conv would convert them back. ``norm="batch"`` is
 NDHWC in, NDHWC f32 logits out; ``channels_last_3d`` inside, so put the
 module in that format as well. D, H and W must be multiples of
 2^(len(features) − 1). ``remat`` checkpoints each double-conv block.
+
+Depth sharding (``set_space_group``): each rank of a ``space`` group holds
+one contiguous depth slab of every activation, as the JAX package's
+``spatial_sharding`` lays volumes out. The 3³ stride-1 convolutions then
+take a halo of one slice on each side from the neighbours
+(``parallel/spatial.py``) and run with no depth padding; the stride-2
+``down{i}`` convolutions take one slice on the left only (output ``o``
+reads inputs 2o−1 … 2o+1 and a slab starts at an even index); GroupNorm
+sums (Σx, Σx²) over the group and takes flax's fast variance
+max(0, E[x²] − E[x]²), the reference's own formula. The upsample, the skip
+concat and the 1³ head are local. Every slab at every level must have an
+even depth, so the slab's depth must divide by 2^(len(features) − 1). The
+parameter names do not change.
 """
 
 from __future__ import annotations
@@ -32,11 +45,14 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from medical_image_segmentation_tpu_torch.models.batchnorm import BatchNorm
 from medical_image_segmentation_tpu_torch.models.mlp import reset_linear
 from medical_image_segmentation_tpu_torch.models.resnet import _checkpointed
+from medical_image_segmentation_tpu_torch.parallel.mesh import all_reduce_sum, group_size
+from medical_image_segmentation_tpu_torch.parallel.spatial import halo_exchange
 
 
 def nearest_upsample_3d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
@@ -49,15 +65,25 @@ def nearest_upsample_3d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return v.permute(0, 4, 1, 2, 3)
 
 
-def group_norm(x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+def group_norm(x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+               space_group=None) -> torch.Tensor:
     """flax's GroupNorm over dim 1 of (B, C, ...) ``x``: f32 statistics per
-    sample and group, the result in ``x``'s dtype and layout."""
+    sample and group, the result in ``x``'s dtype and layout. With
+    ``space_group`` ``x`` is a depth slab and the statistics are the whole
+    volume's: (Σx, Σx²) summed over the group, fast variance."""
     b, c = x.shape[:2]
     per = c // groups
     with torch.autocast(x.device.type, enabled=False):
         xs = x.movedim(1, -1)  # (B, ..., C): contiguous when x is channels-last
-        xg = xs.reshape(b, -1, groups, per)
-        var, mean = torch.var_mean(xg.float(), dim=(1, 3), correction=0)       # (B, G)
+        xg = xs.reshape(b, -1, groups, per).float()
+        if space_group is None:
+            var, mean = torch.var_mean(xg, dim=(1, 3), correction=0)          # (B, G)
+        else:
+            sums = all_reduce_sum(torch.stack([xg.sum(dim=(1, 3)), xg.square().sum(dim=(1, 3))], dim=-1),
+                                  space_group)                                  # (B, G, 2)
+            moments = sums / (xg.shape[1] * per * group_size(space_group))
+            mean = moments[..., 0]
+            var = (moments[..., 1] - mean.square()).clamp_min(0.0)
         rstd = torch.rsqrt(var + eps)
         scale = rstd.repeat_interleave(per, dim=1) * weight.float()            # (B, C)
         shift = bias.float() - mean.repeat_interleave(per, dim=1) * scale
@@ -74,9 +100,10 @@ class GroupNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.space_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.groups, self.weight, self.bias, self.eps)
+        return group_norm(x, self.groups, self.weight, self.bias, self.eps, self.space_group)
 
 
 def _norm(kind: str, filters: int, groups: int) -> nn.Module:
@@ -91,6 +118,16 @@ def _conv3(in_ch: int, out_ch: int, stride: int = 1) -> nn.Conv3d:
     return nn.Conv3d(in_ch, out_ch, 3, stride=stride, padding=1, bias=False)
 
 
+def _sharded_conv(conv: nn.Conv3d, x: torch.Tensor, space_group) -> torch.Tensor:
+    """``conv`` (3³, padding 1) on a depth slab: the neighbours' halo, then
+    no depth padding. Stride 1 takes one slice on each side, stride 2 one
+    on the left only."""
+    if space_group is None:
+        return conv(x)
+    x = halo_exchange(x, space_group, 1, 1 if conv.stride[0] == 1 else 0)
+    return F.conv3d(x, conv.weight, conv.bias, conv.stride, (0, 1, 1))
+
+
 class ConvBlock3D(nn.Module):
     """[Conv3³ + Norm + ReLU] × 2."""
 
@@ -100,10 +137,11 @@ class ConvBlock3D(nn.Module):
         self.norm1 = _norm(norm, filters, groups)
         self.conv2 = _conv3(filters, filters)
         self.norm2 = _norm(norm, filters, groups)
+        self.space_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, norm in ((self.conv1, self.norm1), (self.conv2, self.norm2)):
-            y = conv(x)
+            y = _sharded_conv(conv, x, self.space_group)
             x = torch.relu(norm(y).to(y.dtype))  # the conv's dtype is the compute dtype
         return x
 
@@ -123,6 +161,7 @@ class _Encoder3D(nn.Module):
         self.in_channels = in_channels
         self.features = tuple(features)
         self.remat = remat
+        self.space_group = None
         in_ch = in_channels
         for i, f in enumerate(self.features):
             setattr(self, f"enc{i}", ConvBlock3D(in_ch, f, norm))
@@ -147,7 +186,7 @@ class _Encoder3D(nn.Module):
             x = self._block(f"enc{i}", x)
             if i < len(self.features) - 1:
                 skips.append(x)
-                x = getattr(self, f"down{i}")(x)
+                x = _sharded_conv(getattr(self, f"down{i}"), x, self.space_group)
         return x, skips
 
 
@@ -187,6 +226,11 @@ class UNet3D(_Encoder3D):
         self._check_channels(x)
         stride = 2 ** (len(self.features) - 1)
         d, h, w = x.shape[1:4]
+        if self.space_group is not None and d % stride:
+            raise ValueError(
+                f"UNet3D depth slab of {d} over {group_size(self.space_group)} space ranks: the crop depth must "
+                f"divide by space ranks x {stride} ({len(self.features) - 1} down/upsample stages), so that every "
+                "slab at every level has an even depth")
         if d % stride or h % stride or w % stride:
             raise ValueError(
                 f"UNet3D input D/H/W must be divisible by {stride} "
@@ -198,3 +242,13 @@ class UNet3D(_Encoder3D):
             y = self._block(f"dec{i}", y)
         with torch.autocast(y.device.type, enabled=False):
             return self.head(y.float()).permute(0, 2, 3, 4, 1)
+
+
+def set_space_group(model: nn.Module, group) -> None:
+    """Run ``model`` (a ``UNet3D``) on depth slabs sharded over ``group``:
+    halo-exchanged convolutions and GroupNorm statistics summed over it. A
+    group of one (or None) runs it whole."""
+    group = group if group_size(group) > 1 else None
+    for m in model.modules():
+        if isinstance(m, (_Encoder3D, ConvBlock3D, GroupNorm)):
+            m.space_group = group

@@ -16,7 +16,14 @@ Crop and flips are one gather: the index of output voxel k along an axis
 is ``origin + k``, or ``origin + size − 1 − k`` where that axis is flipped,
 so nothing is copied twice and no origin comes back to the host.
 ``shard=(index, count)`` draws for the global batch and keeps a data
-rank's rows, as in ``ops/augment.py::keep_rows``.
+rank's rows, as in ``ops/augment.py::keep_rows``. ``depth`` (a slice of
+the crop's depth, ``parallel/mesh.py::depth_slab``) keeps a space rank's
+depth slab: the mask's gather takes only those indices (under a depth flip
+they map to the mirrored source range), and so does the image's at eval;
+at train the image is gathered whole, since the contrast jitter turns
+around each sample's mean of the whole crop, and cut to the slab right
+after that mean. The slab is then the whole pipeline's output cut to the
+slab, to the bit.
 """
 
 from __future__ import annotations
@@ -59,28 +66,34 @@ def sample_volume_draws(generator: torch.Generator, batch: int, in_dims: Sequenc
     }
 
 
-def _crop_flip(vols: torch.Tensor, out_size: Sequence[int], draws: Optional[Draws]) -> torch.Tensor:
+def _crop_flip(vols: torch.Tensor, out_size: Sequence[int], draws: Optional[Draws],
+               depth: slice = slice(None)) -> torch.Tensor:
     """(B, d, h, w, C) crops of (B, D, H, W, C) ``vols`` at the draws'
-    origins with their flips, or the centre crops when ``draws`` is None."""
+    origins with their flips, or the centre crops when ``draws`` is None;
+    only the crop depths in ``depth``."""
     b = vols.shape[0]
     index = [torch.arange(b, device=vols.device).view(b, 1, 1, 1)]
     for ax, (i, o) in enumerate(zip(vols.shape[1:4], out_size)):
         k = torch.arange(o, device=vols.device)
+        if ax == 0:
+            k = k[depth]
         if draws is None:
-            idx = ((i - o) // 2 + k).expand(b, o)
+            idx = ((i - o) // 2 + k).expand(b, len(k))
         else:
             flip = draws["flips"][:, ax, None]
             idx = draws["offsets"][:, ax, None] + torch.where(flip, o - 1 - k, k)
         shape = [b, 1, 1, 1]
-        shape[ax + 1] = o
+        shape[ax + 1] = len(k)
         index.append(idx.reshape(shape))
     return vols[tuple(index)]
 
 
-def _jitter(img: torch.Tensor, draws: Draws) -> torch.Tensor:
+def _jitter(img: torch.Tensor, draws: Draws, depth: slice = slice(None)) -> torch.Tensor:
+    """Brightness, then contrast around each sample's mean of the whole
+    ``img``; the result's depths in ``depth``."""
     img = (img * draws["brightness"].view(-1, 1, 1, 1, 1)).clamp(0.0, 1.0)
     m = img.mean(dim=(1, 2, 3, 4), keepdim=True)
-    return (m + draws["contrast"].view(-1, 1, 1, 1, 1) * (img - m)).clamp(0.0, 1.0)
+    return (m + draws["contrast"].view(-1, 1, 1, 1, 1) * (img[:, depth] - m)).clamp(0.0, 1.0)
 
 
 def _normalize(img: torch.Tensor, mean: Sequence[float], std: Sequence[float], dtype) -> torch.Tensor:
@@ -99,18 +112,20 @@ def apply_segmentation_3d(
     value_scale: float = 1.0,
     dtype=torch.bfloat16,
     hu_windows: Sequence[Tuple[float, float]] = (),
+    depth: slice = slice(None),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The paired volume/mask pipeline (``ops/augment3d.py:42-94``) from
     the given draws; ``draws=None`` is the eval pipeline. The mask is
     cropped, cut at 0.5 and flipped with the image's coins. ``hu_windows``
     (level, width on the 0..1 scale) become input channels; a single
     mean/std broadcasts over them. Returns the image in ``dtype`` and the
-    f32 0/1 mask."""
+    f32 0/1 mask, both cut to the crop depths in ``depth``."""
     _check_crop(vols.shape[1:4], out_size)
-    img = _crop_flip(vols, out_size, draws).float() * value_scale
-    msk = (_crop_flip(masks, out_size, draws).float() > 0.5).float()
-    if draws is not None:
-        img = _jitter(img, draws)
+    msk = (_crop_flip(masks, out_size, draws, depth).float() > 0.5).float()
+    if draws is None:
+        img = _crop_flip(vols, out_size, None, depth).float() * value_scale
+    else:
+        img = _jitter(_crop_flip(vols, out_size, draws).float() * value_scale, draws, depth)
     return _normalize(apply_hu_windows(img, hu_windows), mean, std, dtype), msk
 
 
@@ -118,12 +133,12 @@ def segmentation_augment_3d(generator: Optional[torch.Generator], vols: torch.Te
                             out_size: Tuple[int, int, int] = (64, 64, 64), mean: Sequence[float] = (0.2089,),
                             std: Sequence[float] = (0.2109,), train: bool = True, value_scale: float = 1.0,
                             dtype=torch.bfloat16, hu_windows: Sequence[Tuple[float, float]] = (),
-                            shard: Shard = (0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
+                            shard: Shard = (0, 1), depth: slice = slice(None)) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample the draws from ``generator`` when ``train`` (eval needs no
     generator) and apply them: the JAX ``segmentation_augment_3d``."""
     draws = (keep_rows(sample_volume_draws(generator, vols.shape[0] * shard[1], vols.shape[1:4], out_size), shard)
              if train else None)
-    return apply_segmentation_3d(draws, vols, masks, out_size, mean, std, value_scale, dtype, hu_windows)
+    return apply_segmentation_3d(draws, vols, masks, out_size, mean, std, value_scale, dtype, hu_windows, depth)
 
 
 def apply_byol_view_3d(draws: Draws, vols: torch.Tensor, out_size: Tuple[int, int, int] = (32, 64, 64),

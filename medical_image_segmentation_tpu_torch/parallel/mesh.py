@@ -12,12 +12,15 @@ own, so the same training is spelled out:
   job's ``MASTER_ADDR``/``MASTER_PORT``), picks the rank's device and the
   backend by rule, joins the group and prints one ``process r/n`` line.
   No such environment means one process and no group.
-- ``make_mesh`` lays the ranks out row-major on named axes (``("data",)``
-  or ``("data", "model")``) and makes one process group per axis.
+- ``make_mesh`` lays the ranks out row-major on named axes (``("data",)``,
+  ``("data", "model")`` or ``("data", "space")``) and makes one process
+  group per axis, on the joined process's device unless told another.
 - ``replicate`` broadcasts the first data rank's tensors, so every replica
   starts from the same weights (``replicated`` there).
 - ``data_rows`` gives a rank its rows of a global batch (``shard_batch``
-  there).
+  there), ``depth_slab`` its depth range of a volume split over the
+  ``space`` axis (``spatial_sharding`` there; the halo exchange that
+  GSPMD inserts is ``parallel/spatial.py``).
 - The collectives are ``all_reduce`` and ``broadcast`` only: those are what
   the gloo backend carries on CUDA tensors, and gloo is the backend when
   ranks share a card. ``gather_rows`` is therefore an all-reduce of a
@@ -139,11 +142,15 @@ def rank_device(name: str, layout: Optional[Layout]) -> torch.device:
     return device
 
 
+_joined: Optional[Process] = None  # what initialize_distributed joined, for make_mesh's default device
+
+
 def initialize_distributed(device: str = "cuda", env: Optional[Mapping[str, str]] = None,
                            timeout: Optional[datetime.timedelta] = None) -> Process:
     """Join the launch's process group (once per process) and return this
     process's place in it. Without a launch environment, one process and
     no group. Must run before anything else touches the card."""
+    global _joined
     layout = layout_from_env(env)
     dev = rank_device(device, layout)
     if layout is None:
@@ -154,7 +161,8 @@ def initialize_distributed(device: str = "cuda", env: Optional[Mapping[str, str]
         if (dist.get_rank(), dist.get_world_size()) != (layout.rank, layout.world_size):
             raise RuntimeError(f"a process group of rank {dist.get_rank()}/{dist.get_world_size()} is already "
                                f"initialized; the environment names {layout.rank}/{layout.world_size}")
-        return Process(layout.rank, layout.world_size, dev, dist.get_backend(), sharing)
+        _joined = Process(layout.rank, layout.world_size, dev, dist.get_backend(), sharing)
+        return _joined
     backend = choose_backend(dev, layout.local_world_size, n_cards)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -166,13 +174,24 @@ def initialize_distributed(device: str = "cuda", env: Optional[Mapping[str, str]
     print(f"process {layout.rank}/{layout.world_size}: local {layout.local_rank}/{layout.local_world_size} "
           f"({layout.launcher}), device {dev}, backend {backend}"
           + (f", {sharing} ranks share the card" if sharing > 1 else ""), file=sys.stderr)
-    return Process(layout.rank, layout.world_size, dev, backend, sharing)
+    _joined = Process(layout.rank, layout.world_size, dev, backend, sharing)
+    return _joined
 
 
 def shutdown_distributed() -> None:
     """Leave the process group, if this process joined one."""
+    global _joined
+    _joined = None
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def default_device() -> torch.device:
+    """The device of the joined process (``initialize_distributed``'s
+    ``Process``), or the launch's card by ``rank_device`` without a group."""
+    if dist.is_initialized() and _joined is not None:
+        return _joined.device
+    return rank_device("cuda", layout_from_env())
 
 
 class Mesh:
@@ -218,7 +237,10 @@ class Mesh:
         return self.index(axis), self.size(axis)
 
     def ranks(self, axis: str) -> List[int]:
-        """Global ranks of this rank's group along ``axis``, in axis order."""
+        """Global ranks of this rank's group along ``axis``, in axis order
+        (``"all"``: every rank)."""
+        if axis == "all":
+            return list(range(self.world_size))
         return _axis_ranks(self.axis_names, tuple(self.shape.values()), self.coords, axis)
 
 
@@ -236,11 +258,14 @@ def _flat_rank(names, sizes, coords: Mapping[str, int]) -> int:
 
 
 def make_mesh(axis_names: Sequence[str] = ("data",), axis_sizes: Optional[Sequence[int]] = None,
-              device="cpu") -> Mesh:
+              device=None) -> Mesh:
     """A mesh over every rank of the process group (one rank without one).
-    Default: all ranks on the first axis. Every rank must call this with
-    the same arguments: each axis group is created on all ranks in one
-    order (``dist.new_group`` is collective)."""
+    Default: all ranks on the first axis; ``device`` None is the joined
+    process's device (``default_device``), so a card rank's collectives
+    carry card tensors. Every rank must call this with the same arguments:
+    each axis group is created on all ranks in one order
+    (``dist.new_group`` is collective)."""
+    device = default_device() if device is None else device
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     names = tuple(axis_names)
@@ -285,6 +310,18 @@ def data_rows(mesh: Optional[Mesh], batch: int) -> slice:
         raise ValueError(f"global batch {batch} does not divide the {n} data ranks")
     per = batch // n
     i = mesh.index("data") if mesh else 0
+    return slice(i * per, (i + 1) * per)
+
+
+def depth_slab(mesh: Optional[Mesh], depth: int) -> slice:
+    """This rank's contiguous range of a depth of ``depth`` split over the
+    ``space`` axis, in ``space``-index order (the whole depth without a
+    ``space`` axis)."""
+    n = mesh.size("space") if mesh else 1
+    if depth % n:
+        raise ValueError(f"depth {depth} does not divide the {n} space ranks")
+    per = depth // n
+    i = mesh.index("space") if mesh else 0
     return slice(i * per, (i + 1) * per)
 
 

@@ -36,7 +36,7 @@ import io
 import json
 import struct
 import time
-from typing import Callable, Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -68,12 +68,17 @@ def normalize_unit(x01: torch.Tensor, mean: Stats, std: Stats,
 
 
 def make_predict_fn(task, mean: Stats, std: Stats, threshold: float = 0.5,
-                    hu_windows: Sequence[Tuple[float, float]] = ()) -> Callable[[torch.Tensor], torch.Tensor]:
+                    hu_windows: Sequence[Tuple[float, float]] = (),
+                    logits: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
     """(B, H, W, 1) uint8 on the task's device → (B, H, W, 1) uint8 masks.
-    The compute dtype is the task's (bf16 autocast, or f32)."""
+    The compute dtype is the task's (bf16 autocast, or f32). ``logits``
+    replaces ``task.logits`` (``task.replicas(devices)``: the batch split
+    over several devices)."""
+    logits_fn = task.logits if logits is None else logits
 
     def fn(imgs_u8: torch.Tensor) -> torch.Tensor:
-        logits = task.logits(normalize_u8(imgs_u8, mean, std, hu_windows))
+        logits = logits_fn(normalize_u8(imgs_u8, mean, std, hu_windows))
         return post_process_masks(logits, threshold=threshold).to(torch.uint8)
 
     return fn

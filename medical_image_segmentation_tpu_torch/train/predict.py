@@ -21,7 +21,13 @@ of a PNG/DICOM directory or an MIS store.
 - **--exported model.misx**: the batched mode served from an artifact of
   ``mis-export-torch`` (``serve.py``); image size, batch buckets,
   normalization, windows and threshold come from the artifact, so passing
-  any of them beside it is refused.
+  any of them beside it is refused. It serves on one card, as the JAX
+  artifact route does.
+
+With ``--checkpoint``, one process uses every local device of
+``--device`` (``parallel/replicas.py``; JAX ``:189-209,249,260-265``):
+each batch, and each sliding-window batch through the loop in place of the
+fused predictor, is split over one eval-mode copy of the network a device.
 
 Masks are 0/255 PNGs named after their inputs; ``--overlay_dir`` adds
 red overlays. The last line of standard output is a JSON throughput
@@ -50,6 +56,7 @@ from medical_image_segmentation_tpu_torch.eval.sliding_window import (
 )
 from medical_image_segmentation_tpu_torch.ops.augment import parse_hu_windows
 from medical_image_segmentation_tpu_torch.ops.dice import post_process_masks
+from medical_image_segmentation_tpu_torch.parallel.replicas import local_devices
 from medical_image_segmentation_tpu_torch.serve import load_predictor, make_predict_fn, normalize_u8
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
 from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
@@ -172,10 +179,13 @@ def resolve_stats(args) -> Tuple[float, float]:
     return mean, std
 
 
-def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, object]:
+def run(argv: Optional[Sequence[str]] = None, fused: bool = True,
+        devices: Optional[Sequence] = None) -> Dict[str, object]:
     """Serve every slice; returns the JSON summary it prints. ``fused``
     False serves ``--sliding_window`` through the loop instead of the fused
-    predictor (what the fused variant is measured against)."""
+    predictor (what the fused variant is measured against). ``devices``:
+    where a ``--checkpoint`` run computes (default: every local device of
+    ``--device``); more than one splits each batch over them."""
     args = parse_args(argv)
     if (args.images_dir is None) == (args.image_store is None):
         raise SystemExit("exactly one of --images_dir / --image_store is required")
@@ -192,6 +202,11 @@ def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, o
             raise SystemExit(f"{', '.join(bad)}: baked into the artifact at export time — "
                              f"re-run mis-export-torch with the desired values instead")
     device = resolve_device(args.device)
+    devices = [device] if args.exported is not None else [
+        torch.device(d) for d in (local_devices(args.device) if devices is None else devices)]
+    multi = len(devices) > 1
+    if multi:
+        device = devices[0]
 
     if args.exported is not None:
         predictor = load_predictor(args.exported, device=device)
@@ -208,7 +223,9 @@ def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, o
         task = SegmentationTask(arch=args.arch, n_classes=1, in_channels=len(hu_windows) or 1,
                                 dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device)
         restore_model(task, args.checkpoint)
-        predict = make_predict_fn(task, mean, std, threshold=args.threshold, hu_windows=hu_windows)
+        window_fn = task.replicas(devices) if multi else make_unet_window_fn(task)
+        predict = make_predict_fn(task, mean, std, threshold=args.threshold, hu_windows=hu_windows,
+                                  logits=window_fn if multi else None)
 
         def predict_batch(buf: np.ndarray, n: int) -> np.ndarray:  # a short last batch keeps the full shape
             return predict(torch.from_numpy(buf).to(device)).cpu().numpy()[:n]
@@ -227,13 +244,13 @@ def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, o
     n_done = 0
     extra: Dict[str, object] = {}
     if args.sliding_window:
-        window_fn = make_unet_window_fn(task)
+        fused = fused and not multi  # several devices: the loop, each window batch split over them
         if fused:  # one predictor per slice shape, the most recent shapes kept
             window_predict = FusedCache(lambda shape: make_fused_predictor_2d(
                 window_fn, shape, window=args.sliding_window, device=device))
         else:
             def window_predict(x):
-                return sliding_window_predict(window_fn, x, window=args.sliding_window)
+                return sliding_window_predict(window_fn, x, window=args.sliding_window, devices=devices)
         for name, img in _sources(args):
             x = normalize_u8(torch.from_numpy(img[..., None]).to(device), mean, std, hu_windows)
             logits = window_predict(x)
@@ -267,7 +284,7 @@ def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, o
     dt = time.time() - t0
     summary = {"metric": "predict_images_per_sec", "value": round(n_done / dt, 2), "unit": "images/sec",
                "images": n_done, "mode": "sliding_window" if args.sliding_window else "batched",
-               "exported": args.exported is not None, "seconds": dt, **extra}
+               "exported": args.exported is not None, "devices": len(devices), "seconds": dt, **extra}
     print(json.dumps(summary))
     return summary
 

@@ -23,6 +23,11 @@ which takes raw 0..1 windows (a volume smaller than the window is then
 zero-padded before it is normalized, and after on the checkpoint path, as
 in the JAX CLI). The last line of standard output is a JSON
 throughput summary (megavoxels a second through read → predict → write).
+
+With ``--checkpoint``, one process uses every local device of
+``--device`` (``parallel/replicas.py``; JAX ``:104-105,146-157``): the
+loop in place of the fused predictor, each window batch split over one
+eval-mode copy of the network a device. ``--exported`` serves on one card.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from medical_image_segmentation_tpu_torch.eval.sliding_window import (
 )
 from medical_image_segmentation_tpu_torch.ops.augment import parse_hu_windows
 from medical_image_segmentation_tpu_torch.ops.dice import post_process_masks
+from medical_image_segmentation_tpu_torch.parallel.replicas import local_devices
 from medical_image_segmentation_tpu_torch.serve import load_window_predictor, normalize_unit
 from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
 from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
@@ -78,14 +84,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, object]:
+def run(argv: Optional[Sequence[str]] = None, fused: bool = True,
+        devices: Optional[Sequence] = None) -> Dict[str, object]:
     """Serve every volume; returns the JSON summary it prints. ``fused``
     False serves through the loop instead of the fused predictor (what the
-    fused variant is measured against)."""
+    fused variant is measured against). ``devices``: where a
+    ``--checkpoint`` run computes (default: every local device of
+    ``--device``); more than one splits each window batch over them."""
     args = parse_args(argv)
     if (args.checkpoint is None) == (args.exported is None):
         raise SystemExit("exactly one of --checkpoint / --exported is required")
     device = resolve_device(args.device)
+    devices = [device] if args.exported is not None else [
+        torch.device(d) for d in (local_devices(args.device) if devices is None else devices)]
+    multi = len(devices) > 1
+    if multi:
+        device = devices[0]
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
 
@@ -105,7 +119,7 @@ def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, o
         task = Segmentation3DTask(in_channels=len(hu_windows) or 1, features=tuple(args.features), norm=args.norm,
                                   dtype=torch.bfloat16 if args.bf16 else torch.float32, device=device)
         restore_model(task, args.checkpoint)
-        window_fn = task.logits
+        window_fn = task.replicas(devices) if multi else task.logits
 
         def prepare(x01: torch.Tensor) -> torch.Tensor:
             return normalize_unit(x01, args.mean, args.std, hu_windows)
@@ -115,12 +129,14 @@ def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, o
         raise SystemExit(f"no NIfTI volumes under {args.images_dir}")
     os.makedirs(args.output_dir, exist_ok=True)
     window = tuple(args.window)
+    fused = fused and not multi  # several devices: the loop, each window batch split over them
     if fused:  # one predictor per volume shape, the most recent shapes kept
         predict = FusedCache(lambda shape: make_fused_predictor_3d(
             window_fn, shape, window=window, batch_windows=args.batch_windows, device=device))
     else:
         def predict(x):
-            return sliding_window_predict_3d(window_fn, x, window=window, batch_windows=args.batch_windows)
+            return sliding_window_predict_3d(window_fn, x, window=window, batch_windows=args.batch_windows,
+                                             devices=devices)
 
     t0 = time.time()
     n_vox, n_win, per_volume = 0, 0, []
@@ -140,7 +156,7 @@ def run(argv: Optional[Sequence[str]] = None, fused: bool = True) -> Dict[str, o
     dt = time.time() - t0
     summary = {"metric": "predict3d_megavoxels_per_sec", "value": round(n_vox / dt / 1e6, 3), "unit": "Mvox/s",
                "volumes": len(names), "window": list(window), "windows": n_win, "seconds": dt,
-               "seconds_per_volume": per_volume, "exported": args.exported is not None}
+               "seconds_per_volume": per_volume, "exported": args.exported is not None, "devices": len(devices)}
     if fused:
         summary.update(fused_shapes=predict.built, capture_seconds=predict.capture_seconds)
     print(json.dumps(summary))

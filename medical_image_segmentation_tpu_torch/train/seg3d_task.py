@@ -7,15 +7,28 @@ warmup-cosine LR held for a whole epoch and ending at ``min_lr``, bf16
 through autocast, ``remat`` per double-conv block and the state dict are
 ``train/segmentation_task.py``'s, which are shape-agnostic. With the
 default GroupNorm the state dict holds no running statistics.
+
+Under a ``("data", "space")`` mesh (``--space_shards``, the JAX
+``spatial_sharding(mesh, ndim=5)``, ``train/seg3d_task.py:11-17`` there)
+``train_step`` takes this rank's rows and depth slab
+(``parallel/mesh.py::depth_slab``): the network halo-exchanges and sums its
+GroupNorm statistics over the ``space`` group
+(``models/unet3d.py::set_space_group``), the Dice sums, BatchNorm
+statistics and the gradient mean run over every rank. ``logits`` and
+``eval_step`` take whole crops of the rank's rows, replicated over
+``space``, as the JAX eval shards on ``data`` only
+(``train/train_segmentation3d.py:300-330`` there); so does a rank that
+predicts alone.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Iterator, Sequence
 
 import torch
 
-from medical_image_segmentation_tpu_torch.models.unet3d import UNet3D
+from medical_image_segmentation_tpu_torch.models.unet3d import UNet3D, set_space_group
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
 
 
@@ -42,3 +55,25 @@ class Segmentation3DTask(SegmentationTask):
         net_kw = dict(n_classes=n_classes, in_channels=in_channels, features=tuple(features), norm=norm, remat=remat)
         self._build(UNet3D, net_kw, torch.channels_last_3d, learning_rate, weight_decay, momentum, warmup_epochs,
                     max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh)
+        self._space_group = mesh.group("space") if mesh is not None else None
+        set_space_group(self.model, self._space_group)
+
+    @contextlib.contextmanager
+    def _whole_crops(self) -> Iterator[None]:
+        """The network runs unsharded for the duration."""
+        set_space_group(self.model, None)
+        try:
+            yield
+        finally:
+            set_space_group(self.model, self._space_group)
+
+    def logits(self, images: torch.Tensor) -> torch.Tensor:
+        """Eval-mode f32 logits of whole crops: the space group is put
+        aside for the call."""
+        with self._whole_crops():
+            return super().logits(images)
+
+    def replicas(self, devices):
+        """The copies run whole crops too."""
+        with self._whole_crops():
+            return super().replicas(devices)

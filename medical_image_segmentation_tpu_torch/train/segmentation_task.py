@@ -16,7 +16,10 @@
   JAX task does over a sharded batch: each rank passes its rows, the
   BatchNorm statistics and the Dice sums are the global batch's, the
   gradients are averaged over the group by one bucketed all-reduce, and
-  the returned loss and eval metrics are the global batch's.
+  the returned loss and eval metrics are the global batch's. Under a
+  ``("data", "space")`` mesh (``train/seg3d_task.py``) each rank also holds
+  one depth slab: the loss, the BatchNorm statistics and the gradient mean
+  then run over every rank (``"all"``), and eval over the ``data`` ranks.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from medical_image_segmentation_tpu_torch.ops.dice import (
 from medical_image_segmentation_tpu_torch.ops.lars import LARS
 from medical_image_segmentation_tpu_torch.ops.schedules import linear_warmup_cosine_annealing
 from medical_image_segmentation_tpu_torch.parallel.mesh import all_reduce_mean_grads, global_mean, replicate
+from medical_image_segmentation_tpu_torch.parallel.replicas import Replicas
 
 
 class SegmentationTask:
@@ -72,7 +76,9 @@ class SegmentationTask:
         self._net_cls, self._net_kw = net_cls, net_kw
         self.model = net_cls(**net_kw).to(self.device, memory_format=memory_format)
         self.mesh = mesh
-        self._group = mesh.group("data") if mesh is not None else None
+        self._axis = "all" if mesh is not None and mesh.size("space") > 1 else "data"
+        self._group = mesh.group(self._axis) if mesh is not None else None
+        self._eval_group = mesh.group("data") if mesh is not None else None
         set_group((self.model,), self._group)
         self.schedule = linear_warmup_cosine_annealing(
             learning_rate, warmup_epochs, max_epochs, eta_min=min_lr, steps_per_epoch=steps_per_epoch)
@@ -84,7 +90,7 @@ class SegmentationTask:
         fresh = self._net_cls(**self._net_kw)
         fresh.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.load_state_dict(fresh.state_dict())
-        replicate(self.model.state_dict().values(), self.mesh)
+        replicate(self.model.state_dict().values(), self.mesh, self._axis)
         self.optimizer.state.clear()
         self.step = 0
 
@@ -112,17 +118,26 @@ class SegmentationTask:
         """Eval-mode (running-statistics) f32 channels-last logits."""
         self.model.eval()
         try:
-            with self._autocast():
-                return self.model(images)
+            return self._eval_forward(self.model, images)
         finally:
             self.model.train()
+
+    def _eval_forward(self, model: torch.nn.Module, images: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=self.dtype == torch.bfloat16):
+            return model(images)
+
+    def replicas(self, devices) -> Replicas:
+        """Eval-mode copies of the network on ``devices`` that compute
+        ``logits`` with each batch split over them (one process on every
+        local card)."""
+        return Replicas(self.model, devices, self._eval_forward)
 
     def eval_step(self, images: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits = self.logits(images)
         pred = post_process_masks(logits)
-        return {"loss": dice_loss(logits, masks, group=self._group),
-                "dice": dice_coefficient(pred, masks, group=self._group),
-                "iou": jaccard_index(pred, masks, group=self._group)}
+        return {"loss": dice_loss(logits, masks, group=self._eval_group),
+                "dice": dice_coefficient(pred, masks, group=self._eval_group),
+                "iou": jaccard_index(pred, masks, group=self._eval_group)}
 
     def predict_step(self, images: torch.Tensor) -> torch.Tensor:
         """Binarized f32 masks."""

@@ -30,6 +30,9 @@ normalize) → one ``SegmentationTask.train_step``.
   statistics, the Dice sums and the eval metrics are the global batch's,
   gradients are averaged over the ranks; only rank 0 logs, writes
   checkpoints and runs ``--full_res_window`` and ``--predict_grid``.
+- ``--full_res_window`` in a one-process run splits its window batches
+  over every local device (``parallel/replicas.py``; the JAX
+  ``mesh=mesh if nproc == 1``, ``:321``).
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from medical_image_segmentation_tpu_torch.serve import normalize_u8
 from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
 from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
+from medical_image_segmentation_tpu_torch.parallel.replicas import local_devices
 from medical_image_segmentation_tpu_torch.train.train_ssl import refuse_unported, start_ranks
 from medical_image_segmentation_tpu_torch.utils.viz import save_combined_image_grid
 
@@ -140,7 +144,10 @@ class SegRun:
     trace: Optional[str] = None
 
 
-def run(argv: Optional[Sequence[str]] = None) -> SegRun:
+def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None) -> SegRun:
+    """Train; returns what the run did. ``devices``: where a one-process
+    ``--full_res_window`` runs its window batches (default: every local
+    device of ``--device``)."""
     args = parse_args(argv)
     refuse_unported(args, _UNPORTED)
     proc, mesh = start_ranks(args.device, args.batch_size)
@@ -273,7 +280,10 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
         return out
 
     if args.full_res_window:
-        _full_res_test(task, dm, args.full_res_window, mean, std, hu_windows, device, logger, args.max_epochs)
+        if devices is None:
+            devices = local_devices(args.device) if proc.world_size == 1 else [device]
+        _full_res_test(task, dm, args.full_res_window, mean, std, hu_windows, device, logger, args.max_epochs,
+                       devices)
     if args.predict_grid:
         with contextlib.closing(dm.loader("test", min(args.batch_size, 16))) as loader:
             for imgs, msks in loader:
@@ -284,16 +294,17 @@ def run(argv: Optional[Sequence[str]] = None) -> SegRun:
     return out
 
 
-def _full_res_test(task, dm, window, mean, std, hu_windows, device, logger, epoch) -> None:
+def _full_res_test(task, dm, window, mean, std, hu_windows, device, logger, epoch, devices: Sequence = ()) -> None:
     """Dice and IoU of every test slice at its native resolution, through
-    sliding-window blending; the means are printed and logged."""
+    sliding-window blending, the window batches split over ``devices``
+    when it names more than one; the means are printed and logged."""
     ds = dm.dataset("test")
-    window_fn = make_unet_window_fn(task)
+    window_fn = task.replicas(devices) if len(devices) > 1 else make_unet_window_fn(task)
     dices, ious = [], []
     for i in range(len(ds)):
         img, msk = ds[i]
         x = normalize_u8(torch.from_numpy(img[..., None]).to(device), mean, std, hu_windows)
-        pred = post_process_masks(sliding_window_predict(window_fn, x, window=window))
+        pred = post_process_masks(sliding_window_predict(window_fn, x, window=window, devices=devices))
         target = torch.from_numpy(msk[..., None]).to(device).float()
         dices.append(float(dice_coefficient(pred, target)))
         ious.append(float(jaccard_index(pred, target)))

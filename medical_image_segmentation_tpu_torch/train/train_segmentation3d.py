@@ -29,15 +29,24 @@ Medical Decathlon NIfTI volumes on the host to ``--volume_size`` →
   step.
 
 Several processes (torchrun or SLURM, ``parallel/mesh.py``): the global
-``--batch_size`` divides by the world size; each rank reads its shard of
-the volumes (``VolumeLoader(num_hosts=N, host_id=rank)``) and keeps its
-rows of the global augmentation draws; Dice sums (and BatchNorm statistics
-under ``--norm batch``) are the global batch's, gradients are averaged;
-only rank 0 logs, writes checkpoints and runs ``--full_res_window``.
-``--device_cache`` stays single-process, as in the JAX trainer.
+``--batch_size`` divides by the data shards; each rank reads its data
+shard of the volumes (``VolumeLoader(num_hosts=data shards,
+host_id=data index)``) and keeps its rows of the global augmentation
+draws; Dice sums (and BatchNorm statistics under ``--norm batch``) are the
+global batch's, gradients are averaged; only rank 0 logs, writes
+checkpoints and runs ``--full_res_window``. ``--device_cache`` stays
+single-process, as in the JAX trainer.
 
-Only ``--space_shards > 1`` (depth sharded over several cards) is not
-ported; it raises.
+``--space_shards S`` lays the N ranks out as ``("data", "space") = (N/S,
+S)`` (``train_segmentation3d.py:117-126``): the S ranks of a space group
+read the same volumes and draws, and each trains on its depth slab of
+every crop (``train/seg3d_task.py``: halo-exchanged convolutions, GroupNorm
+statistics over the group). The crop depth must divide by S ·
+2^(len(features) − 1), so that every slab at every level has an even
+depth. Rank 0's checkpoint holds the whole replicated weights: it resumes
+under any ``--space_shards``. ``--full_res_window`` in a one-process run
+spreads its window batches over every local device
+(``parallel/replicas.py``).
 """
 
 from __future__ import annotations
@@ -62,10 +71,11 @@ from medical_image_segmentation_tpu_torch.eval.sliding_window import sliding_win
 from medical_image_segmentation_tpu_torch.ops.augment import apply_hu_windows, parse_hu_windows
 from medical_image_segmentation_tpu_torch.ops.augment3d import segmentation_augment_3d
 from medical_image_segmentation_tpu_torch.ops.dice import dice_coefficient, jaccard_index, post_process_masks
+from medical_image_segmentation_tpu_torch.parallel.mesh import depth_slab, shutdown_distributed
+from medical_image_segmentation_tpu_torch.parallel.replicas import local_devices
 from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
 from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
-from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
-from medical_image_segmentation_tpu_torch.train.train_ssl import refuse_unported, start_ranks
+from medical_image_segmentation_tpu_torch.train.train_ssl import start_ranks
 
 DEVICE_CACHE_SINGLE = ("--device_cache is single-process only (a per-host corpus would desynchronize the global "
                        "shuffle); use --cache_volumes on multi-host runs")
@@ -95,7 +105,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="fixed display windows (level:width on the 0-1 intensity scale) stacked as input "
                          "channels; applied at train, eval and sliding-window eval")
     ap.add_argument("--space_shards", type=int, default=1, metavar="N",
-                    help="only 1 in the port so far (depth sharding is ROADMAP.md item 32)")
+                    help="shard each crop's depth over N ranks of a (data, space) mesh (halo-exchanged 3D "
+                         "convolutions); the ranks must divide by N")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device; cuda raises if absent")
     ap.add_argument("--log_dir", default="logs")
@@ -133,12 +144,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-_UNPORTED = (
-    ("space_shards", lambda a: a.space_shards > 1,
-     "depth sharding over several cards (ROADMAP.md item 32, port slice 9: halo-exchanged 3D convolutions)"),
-)
-
-
 @dataclasses.dataclass
 class Seg3DRun:
     """What a run did: the task at its end, the weights it started from
@@ -165,12 +170,23 @@ class Seg3DRun:
     corpus_bytes: int = 0
 
 
-def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
+def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None) -> Seg3DRun:
+    """Train; returns what the run did. ``devices``: where a one-process
+    ``--full_res_window`` runs its window batches (default: every local
+    device of ``--device``)."""
     args = parse_args(argv)
-    refuse_unported(args, _UNPORTED)
-    proc, mesh = start_ranks(args.device, args.batch_size)
+    proc, mesh = start_ranks(args.device, args.batch_size, space_shards=args.space_shards)
     device, main_rank = proc.device, proc.is_main
+    if args.space_shards > 1:
+        if args.crop_size[0] % args.space_shards:
+            raise SystemExit("--crop_size depth must be divisible by --space_shards")
+        levels = 2 ** (len(args.features) - 1)
+        if args.crop_size[0] % (args.space_shards * levels):
+            raise SystemExit(f"--crop_size depth {args.crop_size[0]} must be divisible by --space_shards "
+                             f"{args.space_shards} x {levels} (2^(len(features) - 1)): every depth slab at every "
+                             "level of the U-Net needs an even depth")
     shard = mesh.shard("data")
+    slab = depth_slab(mesh, args.crop_size[0])
     per_rank = args.batch_size // shard[1]
     if args.device_cache and proc.world_size > 1:
         raise SystemExit(DEVICE_CACHE_SINGLE)
@@ -213,9 +229,10 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
     if resumed:
         out.resumed_from, start_epoch, out.skipped = resumed
 
-    def augment(vols, msks, train: bool):
+    def augment(vols, msks, train: bool):  # eval takes whole crops, replicated over space
         return segmentation_augment_3d(aug_gen if train else None, vols, msks, out_size=crop, mean=(args.mean,),
-                                       std=(args.std,), train=train, dtype=dtype, hu_windows=hu_windows, shard=shard)
+                                       std=(args.std,), train=train, dtype=dtype, hu_windows=hu_windows, shard=shard,
+                                       depth=slab if train else slice(None))
 
     # the eval splits are set up once, before the memory guard, so that its
     # probe runs on top of every corpus the run will keep on the card
@@ -310,21 +327,26 @@ def run(argv: Optional[Sequence[str]] = None) -> Seg3DRun:
 
     if args.full_res_window and main_rank:
         ds_test = eval_ctx["test"][0].ds if eval_ctx["test"] else ds_train  # no test split: the train volumes
+        if devices is None:  # a one-process run uses every local device (JAX: mesh=mesh if nproc == 1)
+            devices = local_devices(args.device) if proc.world_size == 1 else [device]
         out.full_res = _full_res_test(task, ds_test, tuple(args.full_res_window), args.mean, args.std, hu_windows,
-                                      device)
+                                      device, devices)
         logger.log(out.full_res, step=task.step, epoch=args.max_epochs)
     return out
 
 
-def _full_res_test(task, ds, window, mean: float, std: float, hu_windows, device) -> Dict[str, float]:
+def _full_res_test(task, ds, window, mean: float, std: float, hu_windows, device,
+                   devices: Sequence = ()) -> Dict[str, float]:
     """Mean Dice and IoU of every volume of ``ds`` at its native size,
     through sliding-window blending of the task's eval-mode logits on the
-    representation it trained on (windows, then normalize)."""
+    representation it trained on (windows, then normalize); the window
+    batches split over ``devices`` when it names more than one."""
+    window_fn = task.replicas(devices) if len(devices) > 1 else task.logits
     dices, ious = [], []
     for i in range(len(ds)):
         vol, msk = ds.raw(i)
         x = (apply_hu_windows(torch.from_numpy(vol).to(device), hu_windows) - mean) / std
-        pred = post_process_masks(sliding_window_predict_3d(task.logits, x, window=window))
+        pred = post_process_masks(sliding_window_predict_3d(window_fn, x, window=window, devices=devices))
         target = torch.from_numpy(msk).to(device)
         dices.append(float(dice_coefficient(pred, target)))
         ious.append(float(jaccard_index(pred, target)))

@@ -156,19 +156,30 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def start_ranks(device: str, batch_size: int, model_parallel: int = 1, hidden_dim: int = 0) -> Tuple[Process, Mesh]:
+def start_ranks(device: str, batch_size: int, model_parallel: int = 1, hidden_dim: int = 0,
+                space_shards: int = 1) -> Tuple[Process, Mesh]:
     """Join the launch's process group (``parallel/mesh.py``) and lay its
-    ranks out: ``("data",)``, or ``("data", "model")`` with
-    ``model_parallel`` ranks a model group. ``batch_size`` is the global
-    batch and must divide by the world size (``train_ssl.py:143-155``)."""
+    ranks out: ``("data",)``; ``("data", "model")`` with ``model_parallel``
+    ranks a model group; or ``("data", "space")`` with ``space_shards``
+    ranks a space group (``train_segmentation3d.py:117-126``).
+    ``batch_size`` is the global batch and must divide by the data shards:
+    the world size (``train_ssl.py:143-155``), or the world over
+    ``space_shards``."""
     proc = initialize_distributed(device)
+    data_shards = proc.world_size
     if model_parallel > 1:
         check_model_parallel(proc.world_size, model_parallel, hidden_dim)
         mesh = make_mesh(("data", "model"), (proc.world_size // model_parallel, model_parallel), device=proc.device)
+    elif space_shards > 1:
+        if proc.world_size % space_shards:
+            raise SystemExit(f"--space_shards {space_shards} must divide the device count {proc.world_size}")
+        data_shards = proc.world_size // space_shards
+        mesh = make_mesh(("data", "space"), (data_shards, space_shards), device=proc.device)
     else:
         mesh = make_mesh(device=proc.device)
-    if batch_size % proc.world_size:
-        raise SystemExit(f"--batch_size {batch_size} must be divisible by the device count {proc.world_size}")
+    if batch_size % data_shards:
+        what = f"the data shards {data_shards}" if space_shards > 1 else f"the device count {proc.world_size}"
+        raise SystemExit(f"--batch_size {batch_size} must be divisible by {what}")
     return proc, mesh
 
 

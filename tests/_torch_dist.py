@@ -115,7 +115,7 @@ def byol_steps(inputs_path: str, kw: dict, axes=(("data",), None), ckpt_dir: str
     from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
 
     inputs = torch.load(inputs_path, weights_only=False)
-    mesh = make_mesh(*axes)
+    mesh = make_mesh(*axes, device="cpu")
     task = BYOLTask(dtype=torch.float32, device="cpu", mesh=mesh, **kw)
     task.load_state_dict({"step": 0, "online": inputs["online"], "target": inputs["target"]})
     metrics = []
@@ -148,19 +148,22 @@ def byol_forward(task, x: torch.Tensor):
     return p.numpy().copy(), z.numpy().copy()
 
 
-def seg_steps(inputs_path: str, kw: dict, volumetric: bool = False, local_dice: bool = False) -> dict:
+def seg_steps(inputs_path: str, kw: dict, volumetric: bool = False, local_dice: bool = False,
+              space: int = 1) -> dict:
     """Segmentation steps on this rank's rows of the global (image, mask)
     batches in ``inputs_path`` (``model``: the state dict, ``steps``), after
     the eval metrics of the initial weights on the first batch. ``local_dice`` trains on each
     rank's own Dice instead of the global one (the wrong loss, for the
-    test that tells them apart)."""
+    test that tells them apart). ``space`` > 1: the ranks form a
+    ``("data", "space")`` mesh of (world // space, space) and each trains
+    on its depth slab of its rows (eval on whole crops of its rows)."""
     from medical_image_segmentation_tpu_torch.ops.dice import dice_loss
-    from medical_image_segmentation_tpu_torch.parallel.mesh import data_rows, make_mesh
+    from medical_image_segmentation_tpu_torch.parallel.mesh import data_rows, depth_slab
     from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
     from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
 
     inputs = torch.load(inputs_path, weights_only=False)
-    mesh = make_mesh()
+    mesh = space_mesh(space)
     task = (Segmentation3DTask if volumetric else SegmentationTask)(dtype=torch.float32, device="cpu", mesh=mesh,
                                                                     **kw)
     task.model.load_state_dict(inputs["model"])
@@ -172,6 +175,115 @@ def seg_steps(inputs_path: str, kw: dict, volumetric: bool = False, local_dice: 
     metrics = []
     for x, m in inputs["steps"]:
         rows = data_rows(mesh, x.shape[0])
-        out = task.train_step(torch.from_numpy(x[rows]), torch.from_numpy(m[rows]))
+        slab = depth_slab(mesh, x.shape[1]) if volumetric else slice(None)
+        out = task.train_step(torch.from_numpy(x[rows][:, slab]), torch.from_numpy(m[rows][:, slab]))
         metrics.append({k: float(v) for k, v in out.items()})
     return {"metrics": metrics, "eval": ev, "model": _numpy(task.model.state_dict())}
+
+
+# --- depth sharding (tests/test_torch_space.py) -------------------------------
+
+
+def space_mesh(space: int = 1):
+    """``("data",)`` on the CPU for ``space`` 1, else a ``("data",
+    "space")`` mesh of (world // space, space)."""
+    import torch.distributed as dist
+
+    from medical_image_segmentation_tpu_torch.parallel.mesh import make_mesh
+
+    if space == 1:
+        return make_mesh(device="cpu")
+    world = dist.get_world_size()
+    return make_mesh(("data", "space"), (world // space, space), device="cpu")
+
+
+def halo_case(space: int, left: int, right: int, shape, seed: int) -> dict:
+    """``halo_exchange`` of this rank's depth slab of a seeded global f64
+    (B, C, D, H, W) tensor over its space group: the output, the input's
+    gradient for a seeded cotangent of this rank, and the two sides of the
+    dot-product test summed over the group."""
+    from medical_image_segmentation_tpu_torch.parallel.mesh import all_reduce_, depth_slab
+    from medical_image_segmentation_tpu_torch.parallel.spatial import halo_exchange
+
+    mesh = space_mesh(space)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    slab = x[:, :, depth_slab(mesh, shape[2])].clone().requires_grad_()
+    out = halo_exchange(slab, mesh.group("space"), left, right)
+    y = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed + 1 + mesh.rank), dtype=torch.float64)
+    (out * y).sum().backward()
+    dots = torch.stack([(out * y).sum(), (slab * slab.grad).sum()]).detach()
+    all_reduce_(dots, mesh.group("space"))
+    return {"out": out.detach().numpy(), "grad": slab.grad.numpy(), "cotangent": y.numpy(),
+            "dots": dots.tolist(), "contiguous_channels_last": out.is_contiguous(memory_format=torch.channels_last_3d)}
+
+
+def space_layers_case(space: int, seed: int) -> dict:
+    """This rank's depth slab through the sharded 3³ convolutions (stride 1
+    and 2) and GroupNorm of ``models/unet3d.py``, forward and backward for a
+    seeded cotangent: the outputs and the gradients of the slab and of the
+    parameters (the parameters' summed over the ranks make the whole
+    volume's)."""
+    from medical_image_segmentation_tpu_torch.models import unet3d
+    from medical_image_segmentation_tpu_torch.parallel.mesh import depth_slab
+
+    mesh = space_mesh(space)
+    group = mesh.group("space")
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, 6, 8 * space, 6, 5), generator=gen)
+    conv1, conv2 = unet3d._conv3(6, 4), unet3d._conv3(6, 6, stride=2)
+    norm = unet3d.GroupNorm(3, 6)
+    for m in (conv1, conv2, norm):
+        for p in m.parameters():
+            p.data.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    out = {}
+    for name, fn in (("conv1", lambda t: unet3d._sharded_conv(conv1, t, group)),
+                     ("conv2", lambda t: unet3d._sharded_conv(conv2, t, group)),
+                     ("norm", lambda t: unet3d.group_norm(t, 3, norm.weight, norm.bias, norm.eps, group))):
+        for m in (conv1, conv2, norm):
+            m.zero_grad(set_to_none=True)
+        slab = x[:, :, depth_slab(mesh, x.shape[2])].clone().contiguous(
+            memory_format=torch.channels_last_3d).requires_grad_()
+        y = fn(slab)
+        cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(seed + 7 + mesh.rank))
+        (y * cot).sum().backward()
+        params = {f"{m_name}.{k}": p.grad.numpy().copy() for m_name, m in (("conv1", conv1), ("conv2", conv2),
+                                                                           ("norm", norm))
+                  for k, p in m.named_parameters() if p.grad is not None}
+        out[name] = {"y": y.detach().numpy(), "grad": slab.grad.numpy(), "cotangent": cot.numpy(), "params": params}
+    return out
+
+
+def unet3d_space_case(space: int, shape, features, seed: int, norm: str = "group") -> dict:
+    """A ``UNet3D`` of ``features`` from ``seed`` on this rank's depth slab
+    of a seeded global NDHWC batch, in train mode: the logits' slab, and
+    the gradients of the slab and of the parameters for a seeded cotangent
+    (the rank's part of the whole-volume sum)."""
+    from medical_image_segmentation_tpu_torch.models.batchnorm import set_group
+    from medical_image_segmentation_tpu_torch.models.unet3d import UNet3D, set_space_group
+    from medical_image_segmentation_tpu_torch.parallel.mesh import depth_slab
+
+    mesh = space_mesh(space)
+    model = UNet3D(features=tuple(features), norm=norm).to(memory_format=torch.channels_last_3d)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    set_space_group(model, mesh.group("space"))
+    set_group((model,), mesh.group("all"))
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1))
+    cot = torch.randn((*shape[:-1], 1), generator=torch.Generator().manual_seed(seed + 2))
+    slab = depth_slab(mesh, shape[1])
+    xs = x[:, slab].clone().requires_grad_()
+    y = model(xs)
+    (y * cot[:, slab]).sum().backward()
+    return {"y": y.detach().numpy(), "grad": xs.grad.numpy(),
+            "params": {k: p.grad.numpy().copy() for k, p in model.named_parameters()}}
+
+
+def trainer_refusal(argv) -> str:
+    """The message of the SystemExit that ``mis-train-segmentation3d-torch``
+    raises on ``argv`` in these ranks, or "" if it ran."""
+    from medical_image_segmentation_tpu_torch.train import train_segmentation3d
+
+    try:
+        train_segmentation3d.run(argv)
+    except SystemExit as e:
+        return str(e)
+    return ""

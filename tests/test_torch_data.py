@@ -271,7 +271,8 @@ def test_port_imports_nothing_of_the_jax_package():
         "new = ['data.ingest.' + n for n in ('utils', 'create_subset', 'compute_stats', 'create_store',\n"
         "       'slice_decathlon', 'create_splits', 'create_seg_store', 'show_store', 'convert_datasets', 'tcia')]\n"
         "new += ['data.datasets', 'data.jpeg2000_encode', 'utils.plot_metrics', 'eval.parity', 'utils.resize',\n"
-        "        'utils.jpeg', 'utils.imageio', 'parallel', 'parallel.mesh', 'parallel.tp']\n"
+        "        'utils.jpeg', 'utils.imageio', 'parallel', 'parallel.mesh', 'parallel.tp', 'parallel.spatial',\n"
+        "        'parallel.replicas']\n"
         "missing = [m for m in new if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'medical_image_segmentation_tpu'))\n"

@@ -171,7 +171,8 @@ def test_the_card_is_the_default_and_raises_without_one(run, argv):
 
 
 def test_what_is_not_ported_raises_and_names_its_roadmap_item(decathlon, tmp_path):
-    with pytest.raises(SystemExit, match=r"--space_shards.*ROADMAP.md item 32.*not ported"):
+    # --space_shards is ported: in one process it is refused with the JAX trainer's text
+    with pytest.raises(SystemExit, match=r"--space_shards 2 must divide the device count 1"):
         train_segmentation3d.run(_seg_argv(decathlon, tmp_path, "--space_shards", "2"))
     base = ["--images_dir", str(decathlon / "imagesTr"), "--output_dir", str(tmp_path / "o"), "--device", "cpu"]
     with pytest.raises(FileNotFoundError, match="m.misx"):  # --exported is served now: a missing artifact is named
