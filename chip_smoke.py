@@ -18,6 +18,18 @@ exits non-zero and prints no result:
    3.35 TB/s (``bound_needed_us``, the one that counts), the same with the
    whole images (``bound_whole_us``), and the f32 operations over 67
    TFLOP/s; ``share_of_bound`` is the bound over the kernel's time.
+3b. native_store: builds the port's native store reader
+   (``medical_image_segmentation_tpu_torch/csrc/mis_loader.cpp`` with its
+   own JPEG and PNG decoders and the DICOM codecs) with ``g++`` alone, on
+   a thread started before phase 2, and prints the command, its seconds, the shared object's ``ldd`` libraries
+   (nothing beyond the C and C++ runtimes) and ``os.cpu_count()``; holds
+   ``fetch`` and ``fetch_views`` (two 112² RandomResizedCrop views a
+   sample) to the byte against the Python ``StoreReader`` and
+   ``fetch_views_fallback`` on 256² stores from a seed: raw u8 and u16, gray
+   JPEG at quality 75 and 95, PNG 8- and 16-bit, JPEG-LS 8- and 16-bit;
+   then times the ``Loader``'s fetch of a batch of 256 × 256² from a raw
+   and a gray JPEG (quality 90) store, native at 1 and 8 threads against
+   the Python reader.
 4. parity: two f32 BYOL steps at a small width on the card against the same
    steps on the CPU: losses within 1e-3 relative, parameters and BatchNorm
    statistics within three times the CPU's own spread under a 1e-6 change
@@ -28,8 +40,12 @@ exits non-zero and prints no result:
    BYOL trainer's entry point on it — ResNet-18 at full width (hidden 4096,
    projection 256, batch 256, 256² → 112²), 3 epochs × 8 steps, with the
    final checkpoint. The kernel's launch count must cover every step, the
-   loss must be finite and every parameter must have moved but the probe's
-   bias, which without labels has no gradient and no decay.
+   loss must be finite, the native reader must have read the store, and
+   every parameter must have moved but the probe's bias, which without
+   labels has no gradient and no decay.
+6b. train_jpeg: the same trainer for 2 × 8 steps on a gray JPEG 256² store
+   (2,048 records of 256 CT-like slices at quality 90): the native reader
+   decodes, the kernel makes the views; steady ms a step beside phase 6's.
 7. step: steady-state BYOL ms/step on a device-resident batch, views from
    the kernel and from the plain version.
 7b. dist: training across several processes on the one card.
@@ -69,8 +85,8 @@ exits non-zero and prints no result:
    bf16, LARS lr 1.0 / min_lr 1e-2, Dice), 2 epochs × 8 steps, its encoder
    grafted from phase 6's checkpoint. The encoder must start equal to the
    BYOL online backbone, every parameter must move, the loss must be
-   finite, val and test Dice/IoU must lie in [0, 1] and the final
-   checkpoint must exist.
+   finite, val and test Dice/IoU must lie in [0, 1], the native reader must
+   have read the stores and the final checkpoint must exist.
 9. predict: the predict entry point on that checkpoint over 512² raw
    stores: batched on 128 slices, sliding-window (224, 16 windows a slice)
    on 16. Mask counts; batched masks against ``predict_step`` on the same
@@ -114,7 +130,7 @@ The SSL path's phases, each at the BYOL width of phase 6:
 11. precrop: ``--host_precrop`` on phase 6's store for 8 steps. The
    elementwise tail on the card against the CPU on the same draws (1 bf16
    ulp), no kernel launch, the H2D bytes a batch of both routes and the
-   host reader that served.
+   host reader that served, which must be the native one.
 12. resume: the BYOL trainer (2 epochs × 8 steps) stopped by SIGTERM after
    step 11, then run with ``--resume``: it ends at step 16 having skipped
    the 3 trained batches, every step ran at the uninterrupted run's LR and
@@ -148,8 +164,10 @@ every image goes through the port's numpy routes:
   dedup must keep 64, the store hold 64 images of 224², the slices and seg
   stores 48. Prints each stage's seconds and counts, the host's ms an
   image for JPEG encode and decode and for INTER_AREA, and whether the
-  libraries were absent or blocked. No kernel lies on this path; the run
-  fails if one is launched.
+  libraries were absent or blocked. The port's native library must be
+  loaded: a 128² 16-bit slice through JPEG-LS and DICOM JPEG Lossless,
+  native against Python (equal), names the route and its ms. No kernel
+  lies on this path; the run fails if one is launched.
 - parity: ``mis-parity-torch`` on that raw data at the canonical width
   (resnet18, hidden 4096 / projection 256, bf16; ``--subset_size 64
   --image_size 224 --ssl_epochs 1 --ssl_batch_size 64 --seg_epochs 1
@@ -157,7 +175,8 @@ every image goes through the port's numpy routes:
   scratch and SSL inits' test Dice in [0, 1], then a second call that
   re-runs nothing. The pretrain stage must launch ``two_view_augment``;
   the kernel is then held against its plain version on a batch of 64 of
-  the harness's own 224² store (1 bf16 ulp) and timed.
+  the harness's own 224² store (1 bf16 ulp) and timed. The native
+  library must be loaded, as in ingest.
 
 The volumetric path's phases, at the 3D trainers' defaults (``UNet3D`` of
 features (32, 64, 128, 256), GroupNorm, bf16, volumes fitted to 64×96×96,
@@ -213,6 +232,7 @@ TF32 is off for both cuDNN and cuBLAS, so every f32 op here is full f32;
 the training steps run in bf16 under autocast, which TF32 does not touch.
 The device line also says whether ``triton`` imports (information only: the
 port needs none). The last lines are the card, the kernels' JSON record (with
+``launches_jpeg_store_path``, the launches of phase 6b,
 ``launches_data_parallel_path``, the kernel launches of each rank in
 dist_train, ``launches_nccl_path``, and ``launches_space_path`` and
 ``launches_multicard_path``, which must be 0) and ``{"ok": true, "device":
@@ -239,6 +259,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -639,12 +660,13 @@ def run_trainer(torch, fa, workdir: str, card: str):
     check(set(still) <= {"probe.bias"}, f"parameters that did not move: {still}")
     ckpt = os.path.join(workdir, "ssl", f"{n_steps}.pt")
     check(os.path.exists(ckpt), f"no final BYOL checkpoint {ckpt}")
+    check(result.reader == "native", f"the raw store was read by the {result.reader} reader")
     steady = result.epochs[1:]
     ms_step = 1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
     phase("train", steps=task.step, launches=launches, losses=losses, params_moved=f"{moved}/{n_params}",
-          store_setup_s=round(setup_s, 2), wall_s=round(wall, 2),
+          reader=result.reader, store_setup_s=round(setup_s, 2), wall_s=round(wall, 2),
           steady_ms_per_step=ms_step, steady_img_per_s=256 * 1000.0 / ms_step, card=repr(card))
-    return task, launches, ckpt
+    return task, launches, ckpt, ms_step
 
 
 def run_step_timing(torch, fa, task, card: str):
@@ -678,6 +700,183 @@ def run_step_timing(torch, fa, task, card: str):
     phase("step", batch=256, ms_step_kernel_views=out["kernel"], ms_step_kernel_views_again=out["kernel2"],
           ms_step_plain_views=out["plain"], img_per_s_kernel=256 * 1000.0 / out["kernel"],
           max_mem_gib=torch.cuda.max_memory_allocated() / 2**30, card=repr(card))
+
+
+# The native store reader (medical_image_segmentation_tpu_torch/csrc/
+# mis_loader.cpp on its own JPEG and PNG decoders, built with g++ alone)
+NATIVE_EQUAL_IMAGES = 16           # images a store in the byte-equality checks
+NATIVE_BATCH = 256                 # images of 256² in a timed batch
+NATIVE_THREADS = (1, 8)
+JPEG_QUALITY = 90                  # create_store's default
+JPEG_TRAIN_DISTINCT = 256          # distinct slices behind the JPEG trainer store's 2,048 records
+JPEG_TRAIN_EPOCHS, JPEG_TRAIN_STEPS = 2, 8
+NATIVE_LIBS = ("linux-vdso", "libc.so", "libm.so", "libstdc++.so", "libgcc_s.so", "libpthread.so", "ld-linux")
+
+
+def ct_slices(rng, n: int, size: int):
+    """(n, size, size) uint8 CT-like slices: a bright ellipse of body on a
+    dark field, smooth structure and noise, as JPEG stores hold them."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:size, :size] / size
+    out = np.empty((n, size, size), np.uint8)
+    for i in range(n):
+        cy, cx, ry, rx = rng.uniform(0.45, 0.55), rng.uniform(0.45, 0.55), rng.uniform(0.3, 0.4), rng.uniform(0.35, 0.45)
+        body = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        tissue = 110 + 40 * np.sin(9 * xx + rng.uniform(0, 6)) * np.cos(7 * yy + rng.uniform(0, 6))
+        out[i] = np.clip(np.where(body, tissue, 8) + rng.normal(0, 6, (size, size)), 0, 255).astype(np.uint8)
+    return out
+
+
+def write_payload_store(path: str, payloads, size: int, codec: int, n: int, dtype=None) -> None:
+    """A store of ``n`` records cycling through pre-encoded payloads."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.store import StoreWriter
+
+    with StoreWriter(path, channels=1, dtype=dtype or np.uint8) as w:
+        for i in range(n):
+            w.add_encoded(payloads[i % len(payloads)], size, size, label=i, codec=codec)
+
+
+def native_equality_stores(workdir: str) -> dict:
+    """Stores from a seed, one a codec: name → path."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.jpegls import jpeg_ls_encode
+    from medical_image_segmentation_tpu_torch.data.store import CODEC_JLS, CODEC_JPEG, CODEC_PNG, CODEC_RAW
+    from medical_image_segmentation_tpu_torch.data.store.writer import _encode
+    from medical_image_segmentation_tpu_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(17)
+    n, size = NATIVE_EQUAL_IMAGES, 256
+    u8 = ct_slices(rng, n, size)
+    u16 = (u8.astype(np.uint16) * 16 + rng.integers(0, 16, u8.shape)).astype(np.uint16)
+    cases = {
+        "raw_u8": ([_encode(im, CODEC_RAW, 0) for im in u8], CODEC_RAW, np.uint8),
+        "raw_u16": ([_encode(im, CODEC_RAW, 0) for im in u16], CODEC_RAW, np.uint16),
+        "jpeg_q75": ([_encode(im, CODEC_JPEG, 75) for im in u8], CODEC_JPEG, np.uint8),
+        "jpeg_q95": ([_encode(im, CODEC_JPEG, 95) for im in u8], CODEC_JPEG, np.uint8),
+        "png_8bit": ([encode_png(im) for im in u8], CODEC_PNG, np.uint8),
+        "png_16bit": ([encode_png(im) for im in u16], CODEC_PNG, np.uint16),
+        "jpegls_u8": ([jpeg_ls_encode(im, precision=8) for im in u8], CODEC_JLS, np.uint8),
+        "jpegls_u16": ([jpeg_ls_encode(im, precision=16) for im in u16], CODEC_JLS, np.uint16),
+    }
+    out = {}
+    for name, (payloads, codec, dtype) in cases.items():
+        out[name] = os.path.join(workdir, f"native_{name}.mis")
+        write_payload_store(out[name], payloads, size, codec, n, dtype)
+    return out
+
+
+def run_native_store(workdir: str, card: str) -> dict:
+    """The port's native reader: its build (command, seconds, the shared
+    object's libraries), byte equality of fetch and fetch_views with the
+    Python reader on every codec, and ms a batch of 256 × 256² native (1
+    and 8 threads) against the Python reader, on a raw and a gray JPEG
+    store. Returns the timings."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.host_precrop import fetch_views_fallback, make_view_params
+    from medical_image_segmentation_tpu_torch.data.loader import Loader
+    from medical_image_segmentation_tpu_torch.data.store import CODEC_JPEG, CODEC_RAW, StoreReader, native
+    from medical_image_segmentation_tpu_torch.data.store.writer import _encode
+
+    t0 = time.time()
+    lib = native.get_lib()
+    check(lib is not None, "the port's native library did not build")
+    info = native.build_info()
+    ldd = subprocess.run(["ldd", info["path"]], capture_output=True, text=True, timeout=60).stdout
+    libs = sorted({ln.split()[0] for ln in ldd.splitlines() if ln.strip()})
+    check(libs and all(name.startswith(NATIVE_LIBS) or name.startswith("/lib") for name in libs),
+          f"the native library needs {libs}")
+    check(not [a for a in info["command"] if a.startswith("-l")], f"build links libraries: {info['command']}")
+    equal = {}
+    for name, path in native_equality_stores(workdir).items():
+        store, reader = native.NativeStore(path), StoreReader(path)
+        try:
+            idx = np.arange(store.num_samples)
+            got, _ = store.fetch(idx, num_threads=8)
+            want = np.stack([reader.image(i) for i in idx])
+            params = make_view_params(5, 0, 0, len(idx), 256, 256, n_views=2)
+            views, _ = store.fetch_views(idx, params, (112, 112), num_threads=8)
+            want_views, _ = fetch_views_fallback(reader, idx, params, (112, 112))
+        finally:
+            store.close()
+            reader.close()
+        check(got.dtype == want.dtype and np.array_equal(got, want), f"native fetch differs from Python on {name}")
+        check(np.array_equal(views, want_views), f"native fetch_views differs from Python on {name}")
+        equal[name] = "fetch+views"
+    rng = np.random.default_rng(23)
+    slices = ct_slices(rng, NATIVE_BATCH, 256)
+    timings = {}
+    for name, codec in (("raw", CODEC_RAW), ("jpeg", CODEC_JPEG)):
+        path = os.path.join(workdir, f"native_time_{name}.mis")
+        write_payload_store(path, [_encode(im, codec, JPEG_QUALITY) for im in slices], 256, codec, NATIVE_BATCH)
+        idx = np.arange(NATIVE_BATCH)
+        # the Loader's own fetch of one batch: native with nt threads, or
+        # the Python reader (one thread whatever nt says), timed once
+        for route, nt, repeat in [("native", nt, 3) for nt in NATIVE_THREADS] + [("python", 1, 1)]:
+            loader = Loader(path, NATIVE_BATCH, num_threads=nt, prefetch=0, use_native=route == "native")
+            try:
+                check((loader._native is not None) == (route == "native"), f"the {route} route did not serve")
+                loader._fetch(idx)  # warm: page cache, the pool's threads
+                ms = []
+                for _ in range(repeat):
+                    t1 = time.perf_counter()
+                    loader._fetch(idx)
+                    ms.append(1000.0 * (time.perf_counter() - t1))
+            finally:
+                loader.close()
+            timings[f"{name}_{route}_ms" + (f"_t{nt}" if route == "native" else "")] = min(ms)
+    phase("native_store", build_s=None if info["seconds"] is None else round(info["seconds"], 2),
+          command=" ".join(os.path.relpath(a, ROOT) if a.startswith(ROOT) else a for a in info["command"]),
+          libraries=libs, cpu_count=os.cpu_count(), byte_equal=equal, batch=f"{NATIVE_BATCH}x256x256",
+          jpeg_quality=JPEG_QUALITY, **timings, seconds=round(time.time() - t0, 2), card=repr(card))
+    return timings
+
+
+def run_jpeg_trainer(torch, fa, workdir: str, raw_ms: float, card: str) -> int:
+    """``mis-train-ssl-torch`` on a gray JPEG 256² store (2,048 records of
+    JPEG_TRAIN_DISTINCT distinct slices at quality 90) for JPEG_TRAIN_EPOCHS ×
+    JPEG_TRAIN_STEPS steps: the native reader decodes, the kernel makes the
+    views. Returns the kernel's launches in the run."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data.store import CODEC_JPEG
+    from medical_image_segmentation_tpu_torch.data.store.writer import _encode
+    from medical_image_segmentation_tpu_torch.train import train_ssl
+
+    t0 = time.time()
+    store = os.path.join(workdir, "radiology_jpeg.mis")
+    slices = ct_slices(np.random.default_rng(29), JPEG_TRAIN_DISTINCT, 256)
+    write_payload_store(store, [_encode(im, CODEC_JPEG, JPEG_QUALITY) for im in slices], 256, CODEC_JPEG, 2048)
+    setup_s = time.time() - t0
+    raw_store = os.environ["RADIOLOGY_1M_TRAIN_STORE"]
+    os.environ["RADIOLOGY_1M_TRAIN_STORE"] = store
+    try:
+        fa.fused_two_view_augment.launches = 0
+        t0 = time.time()
+        result = train_ssl.run(ssl_argv(workdir, "jpeg", "RADIOLOGY_1M", "--max_epochs", str(JPEG_TRAIN_EPOCHS),
+                                        "--limit_steps_per_epoch", str(JPEG_TRAIN_STEPS),
+                                        "--checkpoint_every_epochs", "0"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        os.environ["RADIOLOGY_1M_TRAIN_STORE"] = raw_store
+    launches = fa.fused_two_view_augment.launches
+    n_steps = JPEG_TRAIN_EPOCHS * JPEG_TRAIN_STEPS
+    check(result.reader == "native", f"the JPEG store was read by the {result.reader} reader")
+    check(result.used_kernel and launches >= n_steps, f"kernel launched {launches} times for {n_steps} steps")
+    check(result.task.step == n_steps and all(math.isfinite(e["loss"]) for e in result.epochs),
+          f"JPEG-store run: {result.task.step} steps, epochs {result.epochs}")
+    steady = result.epochs[1:]
+    ms_step = 1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
+    phase("train_jpeg", steps=result.task.step, launches=launches, reader=result.reader,
+          losses=[round(e["loss"], 4) for e in result.epochs], store_setup_s=round(setup_s, 2),
+          wall_s=round(wall, 2), steady_ms_per_step=ms_step, steady_img_per_s=SSL_BATCH * 1000.0 / ms_step,
+          raw_store_steady_ms_per_step=raw_ms, card=repr(card))
+    return launches
 
 
 def write_seg_stores(prefix: str, sizes, size: int, seed: int = 0) -> None:
@@ -745,9 +944,10 @@ def run_seg_train(torch, workdir: str, ssl_ckpt: str, card: str) -> str:
     check(len(metrics) == 6 and all(0.0 <= v <= 1.0 for v in metrics.values()), f"bad val/test metrics {metrics}")
     check(os.path.exists(result.checkpoint) and result.checkpoint.endswith(f"{n_steps}.pt"),
           f"no final checkpoint ({result.checkpoint})")
+    check(result.reader == "native", f"the seg stores were read by the {result.reader} reader")
     steady = result.epochs[1:]
     ms_step = 1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
-    phase("seg_train", steps=task.step, losses=losses, grafted=f"{len(grafted)}/{len(enc)}",
+    phase("seg_train", steps=task.step, losses=losses, grafted=f"{len(grafted)}/{len(enc)}", reader=result.reader,
           params_moved=f"{len(params) - len(still)}/{len(params)}",
           **{k.replace("/", "_"): v for k, v in metrics.items()}, store_setup_s=round(setup_s, 2),
           wall_s=round(wall, 2), steady_ms_per_step=ms_step, steady_img_per_s=SEG_BATCH * 1000.0 / ms_step,
@@ -1168,6 +1368,7 @@ def run_precrop(torch, fa, workdir: str, card: str) -> None:
     wall = time.time() - t0
     launches = fa.fused_two_view_augment.launches
     check(launches == 0 and not result.used_kernel, f"the precrop route launched the kernel {launches} times")
+    check(result.reader == "native", f"the precrop store was read by the {result.reader} reader")
     check(result.task.step == SSL_STEPS and all(math.isfinite(e["loss"]) for e in result.epochs),
           f"precrop run: {result.task.step} steps, epochs {result.epochs}")
     phase("precrop", steps=result.task.step, kernel_launches=launches, tail_max_bf16_ulp=worst,
@@ -1600,6 +1801,34 @@ def codec_ms(store: str, png_dir: str) -> dict:
     return out
 
 
+def native_codec_routes() -> dict:
+    """The port's native library must be loaded: JPEG-LS and DICOM JPEG
+    Lossless then decode through it. A 128² 16-bit slice through each
+    codec's native and Python routes: equal, and ms of each."""
+    import numpy as np
+
+    from medical_image_segmentation_tpu_torch.data import dicom_codecs, jpegls
+    from medical_image_segmentation_tpu_torch.data.store import native
+
+    check(native.get_lib() is not None, "the port's native library is not loaded")
+    img = (1000 + np.random.default_rng(31).integers(0, 3000, (128, 128))).astype(np.uint16)
+    out = {"native_lib": os.path.basename(native.build_info()["path"])}
+    for name, data, fast, slow in (
+            ("jpegls", jpegls.jpeg_ls_encode(img, precision=16), jpegls.jpeg_ls_decode, jpegls.jpeg_ls_decode_py),
+            ("jpeg_lossless", dicom_codecs.jpeg_lossless_encode(img, precision=16),
+             dicom_codecs.jpeg_lossless_decode, dicom_codecs.jpeg_lossless_decode_py)):
+        ms = {}
+        for route, fn in (("native", fast), ("python", slow)):
+            t0 = time.perf_counter()
+            got = fn(data)
+            ms[route] = 1000.0 * (time.perf_counter() - t0)
+            check(np.array_equal(np.asarray(got).reshape(img.shape), img), f"{name} {route} decode is not lossless")
+        out[f"{name}_route"] = "native"
+        out[f"{name}_native_ms"] = round(ms["native"], 3)
+        out[f"{name}_python_ms"] = round(ms["python"], 1)
+    return out
+
+
 def run_ingest(torch, fa, workdir: str, card: str) -> dict:
     """The curation CLIs on synthetic raw data, cv2 and PIL absent or
     blocked, with worker pools of INGEST_PROCS: scans and the curated
@@ -1660,6 +1889,7 @@ def run_ingest(torch, fa, workdir: str, card: str) -> dict:
             except ImportError:
                 pass
         timing = codec_ms(store, os.path.join(out, "subset"))
+        routes = native_codec_routes()
     launches = fa.fused_two_view_augment.launches
     check(launches == 0, f"the ingest path launched two_view_augment {launches} times")
 
@@ -1691,7 +1921,7 @@ def run_ingest(torch, fa, workdir: str, card: str) -> dict:
           write_inputs_s=round(write_s, 2), **{f"{k}_s": v for k, v in seconds.items()},
           dicoms=len(hashes), curated=len(curated), store_images=len(imgs), stats=stats, slices=n_slices,
           seg_counts=seg_counts, kernel_launches=launches,
-          **{k: round(v, 3) for k, v in timing.items()}, card=repr(card))
+          **{k: round(v, 3) for k, v in timing.items()}, **routes, card=repr(card))
     return raw
 
 
@@ -1725,6 +1955,7 @@ def run_parity_harness(torch, fa, workdir: str, raw: dict, card: str) -> tuple:
         again_s = time.time() - t0
         with open(os.path.join(ws, "parity_report.json")) as f:
             report2 = _json.load(f)
+    routes = native_codec_routes()
     check(launches >= 1, f"two_view_augment launched {launches} times in the pretrain stage")
     check(fa.fused_two_view_augment.launches == launches, "the second call launched the kernel")
     check(report2["stage_seconds"] == {} and report2["finetune"] == report["finetune"],
@@ -1769,7 +2000,8 @@ def run_parity_harness(torch, fa, workdir: str, raw: dict, card: str) -> tuple:
     phase("parity", opencv=libs.state["cv2"], pil=libs.state["PIL"], device=PARITY_DEVICE, wall_s=round(wall, 2),
           second_call_s=round(again_s, 2), stage_seconds=stages, measured_mean=ds["measured_mean"],
           measured_std=ds["measured_std"], val_mean=ds.get("val_measured_mean"), val_std=ds.get("val_measured_std"),
-          ssl_loss=report["ssl"].get("loss"), dice=dice, kernel_launches=launches, **record, card=repr(card))
+          ssl_loss=report["ssl"].get("loss"), dice=dice, kernel_launches=launches, **record,
+          native_lib=routes["native_lib"], jpegls_route=routes["jpegls_route"], card=repr(card))
     return launches, record
 
 
@@ -3072,9 +3304,15 @@ def main(argv=None) -> int:
           triton_imports=importlib.util.find_spec("triton") is not None, card=repr(card))
 
     from medical_image_segmentation_tpu_torch.data import datamodules as dm_mod
+    from medical_image_segmentation_tpu_torch.data.store import native
     from medical_image_segmentation_tpu_torch.ops import _kernels
     from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
 
+    # g++ builds the native store reader while nvcc builds the kernel and the
+    # kernel phase runs; native_store waits for it
+    native_build = threading.Thread(target=native.get_lib)
+    if not ab_old_source:
+        native_build.start()
     try:
         t0 = time.time()
         so = _kernels.build_kernel("two_view_augment")
@@ -3085,13 +3323,17 @@ def main(argv=None) -> int:
         if ab_old_source:
             run_ab(torch, fa, dm_mod, ab_old_source, card)
             return finish(torch, card, None)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        native_build.join()
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
+            run_native_store(workdir, card)
         run_parity(torch)
         run_seg_parity(torch)
-        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
-            task, launches, ssl_ckpt = run_trainer(torch, fa, workdir, card)
+            task, launches, ssl_ckpt, raw_ms = run_trainer(torch, fa, workdir, card)
             run_step_timing(torch, fa, task, card)
             del task
+            jpeg_launches = run_jpeg_trainer(torch, fa, workdir, raw_ms, card)
             # the depth-sharded steps run beside dist's; no TPU kernel lies on their path
             dist_record, space_steps = run_dist(torch, fa, workdir, card)
             space_launches = space_steps["launches"]
@@ -3148,6 +3390,7 @@ def main(argv=None) -> int:
                                      "launches_space_path": space_launches,
                                      "launches_multicard_path": multicard_launches,
                                      "launches_ingest_path": ingest_launches,
+                                     "launches_jpeg_store_path": jpeg_launches,
                                      "launches_parity_path": parity_launches, **dist_record,
                                      **kernel_record}])
     except SmokeFailure as e:

@@ -9,8 +9,9 @@ archives:
 - **RLE Lossless** (1.2.840.10008.1.2.5) — PS3.5 Annex G PackBits byte
   segments, decoded with NumPy (decode) and encoded for fixtures/tools;
 - **JPEG Baseline** (1.2.840.10008.1.2.4.50) — 8-bit DCT, decoded through
-  OpenCV's libjpeg binding (decode integration is ours, the codec is the
-  same libjpeg-turbo the loader links);
+  OpenCV's libjpeg binding (decode integration is ours, the codec is
+  libjpeg-turbo; the store reader's own decoder, csrc/jpeg_decode.cpp,
+  gives the same pixels);
 - **JPEG Lossless, Non-Hierarchical** (1.2.840.10008.1.2.4.57 and the
   first-order-prediction .70 that TCIA CT/MR series use) — ITU-T T.81
   process 14: Huffman-coded difference categories + predictor

@@ -3,7 +3,8 @@ replacement (reference usage: `train/data_loaders/lightning_module.py:124-177`).
 
 Pipeline per batch:
   sampler (sequential / random / quasi-random, per-host shard)
-    → C++ decode workers (mmap + libjpeg-turbo/libpng → fixed uint8 buffer)
+    → C++ decode workers (mmap + the port's own JPEG/PNG/JPEG-LS decoders,
+      csrc/ → fixed uint8 buffer)
     → background prefetch thread (decodes batch t+1 while t trains)
     → ``data/device_feed.py`` (pinned, one batch ahead) onto the card.
 

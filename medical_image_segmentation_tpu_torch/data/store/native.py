@@ -1,8 +1,14 @@
-"""ctypes binding + on-demand build of the C++ MIS loader.
+"""ctypes binding + on-demand build of the port's C++ MIS loader.
 
-The shared object is compiled once per machine from ``csrc/mis_loader.cpp``
-(g++, links libjpeg-turbo/libpng/zlib) into a cache directory; callers fall
-back to the pure-Python ``StoreReader`` when no toolchain is available.
+The shared object is compiled once per machine from the port's own
+``csrc/`` (``mis_loader.cpp`` with its JPEG and PNG decoders, and the
+DICOM, JPEG-LS and JPEG 2000 codecs) with ``g++`` alone: it links no codec
+library, so it builds wherever a C++17 compiler is. It goes to
+``build/native/`` under a name of its own and a digest of its sources, and
+loads with ctypes' default ``RTLD_LOCAL``, so it can share a process with
+the JAX package's library, which exports the same symbols. Callers fall
+back to the pure-Python ``StoreReader`` when the build fails, after a line
+on stderr.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -20,14 +27,57 @@ import numpy as np
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD_FAILED = False
+_BUILD: dict = {}
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
-_SRCS = [
-    os.path.join(_REPO_ROOT, "csrc", "mis_loader.cpp"),
-    os.path.join(_REPO_ROOT, "csrc", "dicom_codecs.cpp"),
-    os.path.join(_REPO_ROOT, "csrc", "jpegls_codec.cpp"),
-    os.path.join(_REPO_ROOT, "csrc", "j2k_codec.cpp"),
-]
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_REPO_ROOT = os.path.dirname(_PKG_DIR)
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+_SRCS = [os.path.join(CSRC_DIR, name) for name in (
+    "mis_loader.cpp", "jpeg_decode.cpp", "png_decode.cpp",
+    "dicom_codecs.cpp", "jpegls_codec.cpp", "j2k_codec.cpp",
+)]
+_HEADERS = [os.path.join(CSRC_DIR, "image_codecs.h")]
+
+# the loader's return codes (csrc/mis_loader.cpp, csrc/image_codecs.h): the
+# reference reader's, then the streams the port's decoders name and refuse
+ERRORS = {
+    -1: "corrupt or truncated payload",
+    -2: "index out of range",
+    -3: "wrong codec or channel count",
+    -4: "record offset past the end of the store",
+    -5: "raw payload shorter than its record",
+    -6: "payload of zero height or width",
+    -7: "bad fetch arguments",
+    -8: "payload precision or format does not match the store",
+    -9: "corrupt JPEG-LS payload",
+    -10: "store dtype does not match the call",
+    -11: "progressive JPEG",
+    -12: "arithmetic-coded, lossless or hierarchical JPEG",
+    -13: "JPEG of other than 8-bit samples",
+    -14: "JPEG component layout not carried (RGB colour space, several scans, or chroma "
+         "sampling other than 1x1, 2x1, 1x2, 2x2)",
+    -15: "PNG colour management not carried (cHRM, or a stated gamma on 16-bit RGB read as gray)",
+}
+UNSUPPORTED = (-11, -12, -13, -14, -15)
+
+
+class NativeUnsupported(IOError):
+    """A well-formed payload the port's native decoders do not carry (the
+    reference reader decodes it through libjpeg or libpng); ``code`` is the
+    loader's return code."""
+
+    def __init__(self, call: str, code: int):
+        super().__init__(f"{call} error {code}: {ERRORS[code]}")
+        self.code = code
+
+
+def check_rc(call: str, rc: int) -> None:
+    """Raise on a nonzero loader return code: ``NativeUnsupported`` by name
+    for the payloads the decoders refuse, IOError for the rest."""
+    if rc in UNSUPPORTED:
+        raise NativeUnsupported(call, rc)
+    if rc != 0:
+        raise IOError(f"{call} error {rc}: {ERRORS.get(rc, 'unknown error')}")
 
 
 def _cache_dir() -> str:
@@ -36,21 +86,33 @@ def _cache_dir() -> str:
     return d
 
 
+def build_command(out: str) -> list:
+    """The one compiler call that builds the library: the port's sources,
+    no library beyond the C++ runtime and pthread."""
+    return ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", *_SRCS, "-pthread", "-o", out]
+
+
+def build_info() -> dict:
+    """How this process got the library: ``path``, ``command`` and
+    ``seconds`` (None when an earlier build was reused); empty before
+    ``get_lib``."""
+    return dict(_BUILD)
+
+
 def _build() -> Optional[str]:
     h = hashlib.sha256()
-    for src in _SRCS:
+    for src in _SRCS + _HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]
-    out = os.path.join(_cache_dir(), f"libmisloader-{digest}.so")
+    out = os.path.join(_cache_dir(), f"libmisloader-torch-{digest}.so")
     if os.path.exists(out):
+        _BUILD.update(path=out, command=build_command(out), seconds=None)
         return out
     tmp = f"{out}.{os.getpid()}.tmp"  # pid-unique: concurrent builders must
     # not interleave writes into one -o target before the atomic publish
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        *_SRCS, "-ljpeg", "-lpng", "-lz", "-pthread", "-o", tmp,
-    ]
+    cmd = build_command(tmp)
+    t0 = time.time()
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
     except (subprocess.SubprocessError, FileNotFoundError) as e:
@@ -58,6 +120,7 @@ def _build() -> Optional[str]:
         print(f"mis_loader native build failed: {e}\n{stderr.decode()[:2000]}", file=sys.stderr)
         return None
     os.replace(tmp, out)
+    _BUILD.update(path=out, command=build_command(out), seconds=time.time() - t0)
     return out
 
 
@@ -115,7 +178,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
         ]
-        # compressed-DICOM codecs (csrc/dicom_codecs.cpp)
+        # compressed-DICOM codecs (csrc/dicom_codecs.cpp of this package)
         lib.jls_probe.restype = ctypes.c_int
         lib.jls_probe.argtypes = [
             ctypes.c_char_p, ctypes.c_int64,
@@ -221,8 +284,7 @@ class NativeStore:
             labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             num_threads,
         )
-        if rc != 0:
-            raise IOError(f"mis_fetch error {rc}")
+        check_rc("mis_fetch", rc)
         return out, labels
 
     def fetch_views(
@@ -272,8 +334,7 @@ class NativeStore:
             labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             num_threads,
         )
-        if rc != 0:
-            raise IOError(f"mis_fetch_views error {rc}")
+        check_rc("mis_fetch_views", rc)
         return out, labels
 
     def close(self):

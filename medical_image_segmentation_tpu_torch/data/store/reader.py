@@ -1,7 +1,7 @@
 """MIS store reader — memory-mapped random access (pure Python path).
 
 This is the fallback/reference implementation; the hot path is the C++
-loader (`csrc/mis_loader.cpp`) which shares the same on-disk format. The
+loader (this package's `csrc/mis_loader.cpp`) which shares the same on-disk format. The
 mmap + page-cache behavior is the analogue of FFCV's ``os_cache=True``
 (`lightning_module.py:141-151`).
 

@@ -57,7 +57,7 @@ def _encode(img: np.ndarray, codec: int, quality: int) -> bytes:
         return encode_jpeg_numpy(img, quality) if codec == CODEC_JPEG else encode_png(img)
     # store payloads are RGB-ordered: cv2.imencode assumes BGR input, so
     # 3-channel images are swapped before encoding (the C++ loader decodes
-    # with libjpeg/libpng straight to RGB; StoreReader swaps back after
+    # straight to RGB, csrc/jpeg_decode.cpp and png_decode.cpp; StoreReader swaps back after
     # cv2.imdecode) — without this the two decode paths disagree
     if img.ndim == 3 and img.shape[-1] == 3:
         img = cv2.cvtColor(img, cv2.COLOR_RGB2BGR)

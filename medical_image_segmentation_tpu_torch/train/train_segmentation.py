@@ -128,7 +128,9 @@ class SegRun:
     ``seconds``, ``img_per_s``, ``loss``), the last val and the test
     metrics, the last checkpoint written, whether a signal stopped it,
     ``(step, lr)`` of every step it trained, the step it resumed from and
-    the batches it skipped, the memory guard's report and the trace file."""
+    the batches it skipped, the memory guard's report, the trace file, and
+    which host reader served the train stores ("native", "python", or
+    "png_dir" without stores)."""
 
     task: SegmentationTask
     start_state: Dict[str, torch.Tensor]
@@ -142,6 +144,7 @@ class SegRun:
     skipped: int = 0
     hbm: Optional[dict] = None
     trace: Optional[str] = None
+    reader: str = ""
 
 
 def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None) -> SegRun:
@@ -187,7 +190,7 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
     size = (args.image_size, args.image_size)
     mean, std = tuple(dm.mean), tuple(dm.std)
     aug_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    out = SegRun(task, start_state, [], None, None, "")
+    out = SegRun(task, start_state, [], None, None, "", reader=host_reader(train_loader))
     start_epoch = 0
     resumed = resume_latest(args.checkpoint_dir, task, train_loader, aug_gen, steps_per_epoch) if args.resume else None
     if resumed:
@@ -292,6 +295,15 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
                 print(f"prediction grid → {args.predict_grid}", file=sys.stderr)
                 break
     return out
+
+
+def host_reader(loader) -> str:
+    """Which reader serves a loader: both stores of a ``PairedLoader``
+    through the native library, or not; a PNG directory."""
+    stores = getattr(loader, "_imgs", None), getattr(loader, "_msks", None)
+    if stores[0] is None:
+        return "png_dir"
+    return "native" if all(s._native is not None for s in stores) else "python"
 
 
 def _full_res_test(task, dm, window, mean, std, hu_windows, device, logger, epoch, devices: Sequence = ()) -> None:

@@ -17,7 +17,9 @@ The MIS store writes its 8-bit images as JPEG (``data/store/writer.py``,
   The pixels equal ``cv2.imdecode``'s.
 
 Streams of three components, progressive or arithmetic-coded ones raise
-``JpegUnsupported`` by name: OpenCV reads those. ``encode_jpeg`` calls
+``JpegUnsupported`` by name: OpenCV reads those. The native store reader's
+decoder (``csrc/jpeg_decode.cpp``) is this decoder's C++ twin, with YCbCr
+added. ``encode_jpeg`` calls
 OpenCV where it imports. ``jpeg_size`` reads the frame size from the
 headers alone.
 """
