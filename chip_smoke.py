@@ -228,13 +228,32 @@ kernel lies on this path, and the run fails if one is launched in it.
    time by kind under ``torch.profiler``, the volumetric BYOL step, and
    the memory guard's report.
 
+The port's benchmark programs (after seg3d_step):
+
+23. bench: ``bench_torch.main`` in this process for each task at the
+   bench's default widths and batches, ``--steps 5 --warmup 2``: byol
+   (batch 1024, 256² → 112²), then byol in store mode on a synthetic
+   ``--store auto`` of 512 images, raw and gray JPEG (batch 256: 512
+   images hold no batch of 1024), seg (128 × 224²), seg3d (4 × 64×96×96 →
+   32×64×64), predict (256 × 224²), predict3d (64×96×96, window 32×64×64,
+   8 a batch); then ``--task seg3d --hbm_check`` (exit 0 or 2 and its
+   ``seg3d_projected_hbm_gb`` line) and ``tools/bench_loader_torch.py``
+   (gray JPEG, ``--threads 1 8``). Each JSON line is printed as
+   ``[bench_<run>] {...}``, with the card's name and power limit in it.
+   Fails if a line lacks its metric or ``mfu``, if store mode read through
+   the Python reader, or if byol launched ``two_view_augment`` other than
+   once a step it took (warmup, timed, probe and the FLOP count's) or
+   another task launched it at all. cuDNN's TF32 is back at PyTorch's
+   default (on) for this phase, as a standalone bench run has it.
+
 TF32 is off for both cuDNN and cuBLAS, so every f32 op here is full f32;
 the training steps run in bf16 under autocast, which TF32 does not touch.
 The device line also says whether ``triton`` imports (information only: the
 port needs none). The last lines are the card, the kernels' JSON record (with
 ``launches_jpeg_store_path``, the launches of phase 6b,
 ``launches_data_parallel_path``, the kernel launches of each rank in
-dist_train, ``launches_nccl_path``, and ``launches_space_path`` and
+dist_train, ``launches_nccl_path``, ``launches_bench_path``, the
+launches of the bench's byol runs, and ``launches_space_path`` and
 ``launches_multicard_path``, which must be 0) and ``{"ok": true, "device":
 {...}}``. The run also fails if the port loaded
 ``jax`` or any module of the JAX package.
@@ -251,6 +270,8 @@ line.
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -3275,6 +3296,92 @@ def run_multicard_3d(torch, fa, root: str, workdir: str, ckpt: str, card: str) -
     return launches
 
 
+# The port's benchmark programs at their default widths and batches
+BENCH_DEVICE = "cuda"
+BENCH_FLAGS = ["--steps", "5", "--warmup", "2"]
+BENCH_STORE = ["--task", "byol", "--store", "auto", "--store_images", "512", "--batch_size", "256"]
+BENCH_RUNS = {
+    "byol": ["--task", "byol"],
+    "byol_store_raw": BENCH_STORE + ["--store_codec", "raw"],
+    "byol_store_jpeg": BENCH_STORE + ["--store_codec", "jpeg"],
+    "seg": ["--task", "seg"],
+    "seg3d": ["--task", "seg3d"],
+    "predict": ["--task", "predict"],
+    "predict3d": ["--task", "predict3d"],
+}
+BENCH_METRICS = {"byol": "aug_train_images_per_sec_per_chip", "seg": "seg_train_images_per_sec_per_chip",
+                 "seg3d": "seg3d_train_volumes_per_sec_per_chip", "predict": "predict_images_per_sec_per_chip",
+                 "predict3d": "predict3d_volumes_per_sec_per_chip"}
+BENCH_LOADER = ["--codec", "jpeg", "--threads", "1", "8"]
+
+
+def captured_main(main, argv):
+    """(exit code, stdout lines) of ``main(argv)`` run in this process."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def run_bench_programs(torch, fa, card: str) -> int:
+    """``bench_torch.py`` for each task and ``tools/bench_loader_torch.py``,
+    in this process (phase 23). Returns the kernel's launches in the byol
+    runs."""
+    import bench_torch
+
+    spec = importlib.util.spec_from_file_location("bench_loader_torch", os.path.join(ROOT, "tools",
+                                                                                     "bench_loader_torch.py"))
+    loader_tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(loader_tool)
+    steps_run = 2 + 5 + 5 + 1  # warmup, timed, the probe's min(steps, 12), the FLOP count's
+    byol_launches = 0
+    seconds = {}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, argv in BENCH_RUNS.items():
+            torch.cuda.empty_cache()
+            fa.fused_two_view_augment.launches = 0
+            t0 = time.time()
+            rc, lines = captured_main(bench_torch.main, argv + BENCH_FLAGS + ["--device", BENCH_DEVICE])
+            seconds[name] = round(time.time() - t0, 2)
+            launches = fa.fused_two_view_augment.launches
+            check(rc == 0 and lines, f"bench_torch {' '.join(argv)}: exit {rc}, {len(lines)} lines")
+            line = json.loads(lines[-1])
+            print(f"[bench_{name}] {json.dumps(line)}", flush=True)
+            task = name.split("_")[0]
+            check(line.get("metric") == BENCH_METRICS[task], f"bench {name}: metric {line.get('metric')!r}")
+            check(isinstance(line.get("mfu"), float) and line["mfu"] > 0, f"bench {name}: mfu {line.get('mfu')!r}")
+            check(line.get("device_name") and line.get("gpus") == 1 and "power_limit_w" in line,
+                  f"bench {name}: card fields {line.get('device_name')!r}, {line.get('power_limit_w')!r}")
+            if "store" in name:
+                check(line.get("reader") == "native", f"bench {name} read through the {line.get('reader')} reader")
+            if task == "byol":
+                check(launches == steps_run == line["steps_run"],
+                      f"bench {name} launched two_view_augment {launches} times for {line['steps_run']} steps")
+                byol_launches += launches
+            else:
+                check(launches == 0, f"bench {name} launched two_view_augment {launches} times")
+        torch.cuda.empty_cache()
+        hbm_rc, lines = captured_main(bench_torch.main, ["--task", "seg3d", "--hbm_check", "--device", BENCH_DEVICE])
+        check(hbm_rc in (0, 2) and lines, f"bench_torch --task seg3d --hbm_check: exit {hbm_rc}")
+        hbm = json.loads(lines[-1])
+        print(f"[bench_seg3d_hbm_check] {json.dumps(hbm)}", flush=True)
+        check(hbm.get("metric") == "seg3d_projected_hbm_gb" and hbm.get("value") is not None,
+              f"bench --hbm_check line {hbm}")
+        t0 = time.time()
+        rc, lines = captured_main(loader_tool.main, BENCH_LOADER)
+        seconds["bench_loader"] = round(time.time() - t0, 2)
+        check(rc == 0 and lines, f"tools/bench_loader_torch.py {' '.join(BENCH_LOADER)}: exit {rc}")
+        loader = json.loads(lines[-1])
+        print(f"[bench_loader] {json.dumps(loader)}", flush=True)
+        check(loader.get("reader") == "native" and loader.get("codec") == "jpeg", f"bench_loader line {loader}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    phase("bench", runs=len(BENCH_RUNS), byol_launches=byol_launches, hbm_check_exit=hbm_rc, seconds=seconds,
+          card=repr(card))
+    return byol_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3383,6 +3490,7 @@ def main(argv=None) -> int:
         check(serving_launches == 0, f"the serving path launched two_view_augment {serving_launches} times")
         check(space_launches == 0, f"the depth-sharded path launched two_view_augment {space_launches} times")
         check(multicard_launches == 0, f"the multi-device path launched two_view_augment {multicard_launches} times")
+        bench_launches = run_bench_programs(torch, fa, card)
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches,
                                      "launches_volumetric_path": vol_launches,
@@ -3391,7 +3499,8 @@ def main(argv=None) -> int:
                                      "launches_multicard_path": multicard_launches,
                                      "launches_ingest_path": ingest_launches,
                                      "launches_jpeg_store_path": jpeg_launches,
-                                     "launches_parity_path": parity_launches, **dist_record,
+                                     "launches_parity_path": parity_launches,
+                                     "launches_bench_path": bench_launches, **dist_record,
                                      **kernel_record}])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

@@ -29,6 +29,12 @@ from medical_image_segmentation_tpu_torch.ops.augment import (
 DATAMODULES: Registry = Registry("datamodule")
 
 
+def register_datamodule(name: str):
+    """Decorator that registers a datamodule class under ``name`` for
+    ``get_datamodule`` (``data/datamodules.py:32-33``)."""
+    return DATAMODULES.register(name)
+
+
 def get_datamodule(name: str):
     return DATAMODULES.get(name)
 

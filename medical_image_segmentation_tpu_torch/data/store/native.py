@@ -4,11 +4,13 @@ The shared object is compiled once per machine from the port's own
 ``csrc/`` (``mis_loader.cpp`` with its JPEG and PNG decoders, and the
 DICOM, JPEG-LS and JPEG 2000 codecs) with ``g++`` alone: it links no codec
 library, so it builds wherever a C++17 compiler is. It goes to
-``build/native/`` under a name of its own and a digest of its sources, and
-loads with ctypes' default ``RTLD_LOCAL``, so it can share a process with
-the JAX package's library, which exports the same symbols. Callers fall
-back to the pure-Python ``StoreReader`` when the build fails, after a line
-on stderr.
+``build/native/`` (or ``MIS_NATIVE_CACHE``) under a name of its own and a
+digest of its sources, its build command and the host CPU's model: the
+build is ``-march=native``, so a cache shared by machines with other CPUs
+keeps one library for each (``library_name``). It loads with ctypes'
+default ``RTLD_LOCAL``, so it can share a process with the JAX package's
+library, which exports the same symbols. Callers fall back to the
+pure-Python ``StoreReader`` when the build fails, after a line on stderr.
 """
 
 from __future__ import annotations
@@ -16,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import sys
 import threading
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -92,6 +95,36 @@ def build_command(out: str) -> list:
     return ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", *_SRCS, "-pthread", "-o", out]
 
 
+def host_cpu_model() -> str:
+    """The CPU model ``-march=native`` builds for: ``model name`` of
+    ``/proc/cpuinfo``, else ``platform.processor()`` or the machine type."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor() or platform.machine()
+
+
+def library_name(command: Optional[Sequence[str]] = None, cpu_model: Optional[str] = None) -> str:
+    """The shared object's file name: a digest of the sources and headers,
+    the build command without its ``-o`` target (sources named relative to
+    ``csrc/``, so the checkout's place does not count) and the CPU model;
+    by default this build's command and this host's CPU."""
+    if command is None:
+        command = build_command("")[:-2]
+    h = hashlib.sha256()
+    for src in _SRCS + _HEADERS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    for arg in command:
+        h.update((os.path.relpath(arg, CSRC_DIR) if arg in _SRCS else arg).encode() + b"\0")
+    h.update((host_cpu_model() if cpu_model is None else cpu_model).encode())
+    return f"libmisloader-torch-{h.hexdigest()[:16]}.so"
+
+
 def build_info() -> dict:
     """How this process got the library: ``path``, ``command`` and
     ``seconds`` (None when an earlier build was reused); empty before
@@ -100,12 +133,7 @@ def build_info() -> dict:
 
 
 def _build() -> Optional[str]:
-    h = hashlib.sha256()
-    for src in _SRCS + _HEADERS:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    digest = h.hexdigest()[:16]
-    out = os.path.join(_cache_dir(), f"libmisloader-torch-{digest}.so")
+    out = os.path.join(_cache_dir(), library_name())
     if os.path.exists(out):
         _BUILD.update(path=out, command=build_command(out), seconds=None)
         return out

@@ -1,12 +1,14 @@
 """Image grids and the prediction/truth overlay grid. Port of
 ``utils/viz.py:43-77``: ``save_image_grid`` writes with OpenCV where it
 imports and otherwise with the port's PNG writer (``utils/imageio.py``),
-the overlay always with ``utils/png.py``; the tiling helpers are copies of
-the JAX package's numpy code (``utils/viz.py:21-40``)."""
+the overlay always with ``utils/png.py``; the tiling helpers and
+``print_batch_stats`` are copies of the JAX package's numpy code
+(``utils/viz.py:21-40``, ``:80-86``)."""
 
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 
@@ -59,3 +61,13 @@ def save_combined_image_grid(images: np.ndarray, pred_masks: np.ndarray, masks: 
     rgb[..., 2:3] = np.where(true > 0.5, (1 - alpha) * rgb[..., 2:3] + alpha * 255.0, rgb[..., 2:3])
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     write_png(path, _to_grid(rgb.astype(np.uint8), nrow))
+
+
+def print_batch_stats(name: str, arr: np.ndarray, file=sys.stderr) -> None:
+    """One line of shape, dtype, min, max, mean and std of ``arr``."""
+    arr = np.asarray(arr)
+    print(
+        f"{name}: shape={arr.shape} dtype={arr.dtype} "
+        f"min={arr.min():.4f} max={arr.max():.4f} mean={arr.mean():.4f} std={arr.std():.4f}",
+        file=file,
+    )
