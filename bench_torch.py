@@ -51,19 +51,47 @@ the device has no memory capacity to compare against (the CPU).
 Prints ONE JSON line last, with bench.py's metric names and fields
 (``aug_train_images_per_sec_per_chip``, ``seg_train_images_per_sec_per_chip``,
 ``seg3d_train_volumes_per_sec_per_chip``, ``predict_images_per_sec_per_chip``,
-``predict3d_volumes_per_sec_per_chip``), changed three ways:
+``predict3d_volumes_per_sec_per_chip``), changed four ways:
 
 - ``vs_baseline`` is dropped: its 5,000 img/s is a TPU target;
 - ``device_name`` and ``power_limit_w`` are added, as ``nvidia-smi
   --query-gpu=name,power.limit`` gives them (``torch.cuda.get_device_name``
   and None without ``nvidia-smi``), so every number carries its card;
 - in store mode ``reader`` is added, ``native`` or ``python``: the
-  ``Loader`` reads in Python when the native library does not build.
+  ``Loader`` reads in Python when the native library does not build;
+- ``total_per_sec`` (the rate of every card together), ``ranks``,
+  ``backend`` and ``gpus`` are added, and ``devices`` for predict.
 
-One card a process: ``--device cuda:N`` picks it and the line says
-``"gpus": 1``. ``--device`` defaults to ``cuda`` and the run exits 3 where
-there is no card; ``--device cpu`` is for the tests, and its numbers are
-no device metric.
+Over every card of a launch, as ``bench.py`` measures over every device:
+
+- byol, seg and seg3d in the ranks of ``torchrun --nproc_per_node N
+  bench_torch.py --task …`` (or SLURM's tasks): each rank joins the group
+  (``parallel/mesh.py::initialize_distributed``), trains one model on its
+  rows of the global ``--batch_size`` (which must divide the ranks) drawn
+  from the one process's seeds, so the augmentation draws and the weights
+  follow the one-process run's; store mode gives each rank its shard of the
+  store and ``os.cpu_count() // local ranks`` decode threads. The timed loop
+  starts after a barrier and ends in each rank's synchronize; its seconds
+  and each probe step's latency are the slowest rank's, the FLOPs the sum
+  of the ranks' counts. ``value`` is the global rate over the ranks
+  (``bench.py``'s ``per_chip``), ``total_per_sec`` the global rate, ``mfu``
+  the global FLOP/s over the peak times the ranks; ``ranks`` and
+  ``backend`` name the group and ``gpus`` counts the distinct cards its
+  ranks use. Rank 0 prints the line; the other ranks print theirs to
+  stderr. ``--hbm_check`` reports the largest rank's peak and exits 2 if
+  any rank does not fit. A launch whose variables fail to form a group
+  raises.
+- predict with a bare ``--device cuda`` splits each batch over every
+  visible card through ``parallel/replicas.py::Replicas`` in one process
+  (``devices`` and ``gpus`` count them; ``value`` is the rate over the
+  devices; ``--exported`` times one device's share of the batch).
+  ``--device cuda:N`` keeps one card, and predict3d runs on one device, as
+  in ``bench.py``. Neither runs under a launch of more than one rank.
+
+Without launch variables the run is one process and the line says
+``"ranks": 1, "backend": null``. ``--device`` defaults to ``cuda`` and the
+run exits 3 where there is no card; ``--device cpu`` is for the tests, and
+its numbers are no device metric.
 """
 
 from __future__ import annotations
@@ -71,11 +99,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -104,14 +134,44 @@ def _peak_flops_per_chip(device: torch.device) -> float | None:
     return None
 
 
-def _card_fields(device: torch.device) -> dict:
-    """``device_name`` and ``power_limit_w`` of the card from its line of
-    ``nvidia-smi --query-gpu=name,power.limit`` ("cpu" and None on the
-    CPU; the CUDA name and None where ``nvidia-smi`` gives nothing)."""
+def _card_key(device: torch.device) -> float:
+    """A number that names ``device``'s card among every host's (0 for no
+    card): 52 bits of a digest of the host name and the card's UUID (its
+    index where PyTorch gives no UUID), exact in a float64."""
     if device.type != "cuda":
-        return {"device_name": "cpu", "power_limit_w": None, "gpus": 0}
+        return 0.0
     index = device.index if device.index is not None else torch.cuda.current_device()
-    fields = {"device_name": torch.cuda.get_device_name(index), "power_limit_w": None, "gpus": 1}
+    card = getattr(torch.cuda.get_device_properties(index), "uuid", None) or index
+    return float(int(hashlib.sha256(f"{socket.gethostname()}:{card}".encode()).hexdigest()[:13], 16) + 1)
+
+
+def _gathered(values, mesh, device: torch.device) -> np.ndarray:
+    """Every rank's ``values`` as a (ranks, len(values)) float64 array, one
+    row a rank (a collective under ``mesh``; this process's row without
+    one)."""
+    from medical_image_segmentation_tpu_torch.parallel.mesh import gather_rows
+
+    row = torch.tensor([[float(v) for v in values]], dtype=torch.float64, device=device)
+    if mesh is not None:
+        row = gather_rows(row, mesh.group("all"))
+    return row.cpu().numpy()
+
+
+def _card_fields(device: torch.device, mesh=None) -> dict:
+    """``device_name`` and ``power_limit_w`` of this process's card from
+    its line of ``nvidia-smi --query-gpu=name,power.limit`` ("cpu" and None
+    on the CPU; the CUDA name and None where ``nvidia-smi`` gives nothing),
+    ``gpus``, the distinct cards of the ranks of ``mesh`` (a collective),
+    and the group's ``ranks`` and ``backend``."""
+    import torch.distributed as dist
+
+    cards = {k for k in _gathered([_card_key(device)], mesh, device)[:, 0] if k}
+    group = {"gpus": len(cards), "ranks": mesh.world_size if mesh is not None else 1,
+             "backend": dist.get_backend() if mesh is not None else None}
+    if device.type != "cuda":
+        return {"device_name": "cpu", "power_limit_w": None, **group}
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    fields = {"device_name": torch.cuda.get_device_name(index), "power_limit_w": None, **group}
     try:
         lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
@@ -125,9 +185,51 @@ def _card_fields(device: torch.device) -> dict:
     return fields
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(device) -> None:
+    """Wait for ``device``'s work (each device's, given a list)."""
+    for d in device if isinstance(device, (list, tuple)) else (device,):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _barrier(mesh, device: torch.device) -> None:
+    """Start every rank together: a collective the host waits for (NCCL
+    only enqueues it, hence the synchronize)."""
+    from medical_image_segmentation_tpu_torch.parallel.mesh import barrier
+
+    barrier(mesh)
+    _sync(device)
+
+
+def _emit(out: dict, mesh) -> None:
+    """The JSON line: on stdout from rank 0 (or the one process), on stderr
+    from every other rank, so the last stdout line of a launch is one."""
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(out))
+    else:
+        print(f"[rank {mesh.rank}] {json.dumps(out)}", file=sys.stderr)
+
+
+def _say(msg: str, mesh) -> None:
+    """A human line on stderr, from rank 0 only."""
+    if mesh is None or mesh.rank == 0:
+        print(msg, file=sys.stderr)
+
+
+def _refuse_indivisible(batch: int, n: int) -> None:
+    if batch % n:
+        raise SystemExit(f"--batch_size {batch} must divide {n} devices")
+
+
+def _data_split(batch: int, mesh):
+    """(ranks, this rank's rows of the global batch, its ``shard`` of the
+    augmentation draws); refuses a batch the ranks do not divide, in
+    ``bench.py``'s words."""
+    from medical_image_segmentation_tpu_torch.parallel.mesh import data_rows
+
+    chips = mesh.world_size if mesh is not None else 1
+    _refuse_indivisible(batch, chips)
+    return chips, data_rows(mesh, batch), mesh.shard("data") if mesh is not None else (0, 1)
 
 
 def _step_flops(fn) -> float | None:
@@ -141,9 +243,23 @@ def _step_flops(fn) -> float | None:
     return f if f > 0 else None
 
 
-def _mfu(flops, n_calls: int, seconds: float, device: torch.device):
+def _total_flops(fn, mesh, device: torch.device) -> float | None:
+    """``_step_flops`` of one call of ``fn`` in every rank, summed (the
+    global step's FLOPs)."""
+    f = float(_gathered([_step_flops(fn) or 0.0], mesh, device).sum())
+    return f if f > 0 else None
+
+
+def _mfu(flops, n_calls: int, seconds: float, device: torch.device, chips: int = 1):
+    """``bench.py``'s ``flops * steps / dt / (peak * n_chips)``."""
     peak = _peak_flops_per_chip(device)
-    return round(flops * n_calls / seconds / peak, 4) if flops and peak else None
+    return round(flops * n_calls / seconds / (peak * chips), 4) if flops and peak else None
+
+
+def _rate_fields(total: float, chips: int, digits: int) -> dict:
+    """``value``, ``bench.py``'s ``per_chip`` (the rate of every chip
+    together over the chips), and ``total_per_sec``, that rate unrounded."""
+    return {"value": round(total / chips, digits), "total_per_sec": total}
 
 
 def _memory_report(peak, device: torch.device) -> dict | None:
@@ -169,13 +285,15 @@ def _hbm_json_fields(mem) -> dict:
     return out
 
 
-def _hbm_check_exit(probe, task: str, device: torch.device, extra: dict | None = None) -> int:
+def _hbm_check_exit(probe, task: str, device: torch.device, extra: dict | None = None, mesh=None) -> int:
     """--hbm_check: run ``probe`` (ONE step at the run's shapes, which puts
     back what it changes) and read its peak device memory against the
     card's, print the diagnosis and one JSON line, and return 2 when the
     step does not fit, 0 when it does, 4 where the device has no capacity
     to compare against. Unlike bench.py, which only compiles, this runs the
-    step: PyTorch has no static memory plan."""
+    step: PyTorch has no static memory plan. Under ``mesh`` every rank runs
+    its probe and the largest rank's peak decides (out of memory in any
+    rank: 2 in every rank)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from medical_image_segmentation_tpu_torch.core.hbm import device_hbm_capacity, format_hbm_report, probe_peak
@@ -186,19 +304,22 @@ def _hbm_check_exit(probe, task: str, device: torch.device, extra: dict | None =
         return 4
     with FlopCounterMode(display=False) as counter:
         peak = probe_peak(probe, device)
+    ranks = _gathered([math.inf if peak is None else peak, counter.get_total_flops()], mesh, device)
+    peak = None if math.isinf(ranks[:, 0].max()) else int(ranks[:, 0].max())
+    flops = float(ranks[:, 1].sum())
     mem = _memory_report(peak, device)
-    print(format_hbm_report(mem, label=f"{task} step"), file=sys.stderr)
+    _say(format_hbm_report(mem, label=f"{task} step"), mesh)
     if mem["oversubscribed"]:
-        print(f"WARNING: {task} step does not fit the card's memory — lower --batch_size, use --remat, "
-              "or shard wider", file=sys.stderr)
+        _say(f"WARNING: {task} step does not fit the card's memory — lower --batch_size, use --remat, "
+             "or shard wider", mesh)
     fields = _hbm_json_fields(mem)
     out = {"metric": f"{task}_projected_hbm_gb", "value": fields.pop("projected_hbm_gb"), "unit": "GiB",
-           "task": task, "hbm_check": True, **fields, **_card_fields(device)}
-    if counter.get_total_flops():
-        out["step_gflops"] = round(counter.get_total_flops() / 1e9, 1)
+           "task": task, "hbm_check": True, **fields, **_card_fields(device, mesh)}
+    if flops:
+        out["step_gflops"] = round(flops / 1e9, 1)
     if extra:
         out.update(extra)
-    print(json.dumps(out))
+    _emit(out, mesh)
     return 2 if mem["oversubscribed"] else 0
 
 
@@ -231,15 +352,17 @@ def _dispersion_fields(probe_lat, loop_ms_mean: float, label: str) -> dict:
     return fields
 
 
-def _time_steps(step, args, device: torch.device):
+def _time_steps(step, args, device: torch.device, mesh=None):
     """Warmup, the throughput loop (one sync at its end; traced under
     ``--profile``), then the fenced probe of ``min(steps, 12)`` steps.
-    Returns (loop seconds, probe latencies, the loop's last result)."""
+    Under ``mesh`` the loop and each probe step start after a barrier, and
+    each time is the slowest rank's. Returns (loop seconds, probe
+    latencies, the loop's last result)."""
     from medical_image_segmentation_tpu_torch.core.profiling import trace_if
 
     for _ in range(args.warmup):
         step()
-    _sync(device)
+    _barrier(mesh, device)
     with trace_if(args.profile or "", enabled=bool(args.profile), device=device):
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -248,16 +371,19 @@ def _time_steps(step, args, device: torch.device):
         dt = time.perf_counter() - t0
     probe_lat = []
     for _ in range(min(args.steps, 12)):
+        _barrier(mesh, device)
         t0 = time.perf_counter()
         step()
         _sync(device)
         probe_lat.append(time.perf_counter() - t0)
-    return dt, probe_lat, out
+    slowest = _gathered([dt, *probe_lat], mesh, device).max(axis=0)
+    return float(slowest[0]), [float(x) for x in slowest[1:]], out
 
 
-def _time_calls(call, args, device: torch.device) -> np.ndarray:
+def _time_calls(call, args, device) -> np.ndarray:
     """Per-call latencies of ``args.steps`` synchronised calls after one
-    call and the warmup (traced under ``--profile``)."""
+    call and the warmup (traced under ``--profile``). ``device``: the one
+    device, or the list of devices a call runs on (each is synchronised)."""
     from medical_image_segmentation_tpu_torch.core.profiling import trace_if
 
     call()
@@ -265,7 +391,8 @@ def _time_calls(call, args, device: torch.device) -> np.ndarray:
         call()
     _sync(device)
     lat = []
-    with trace_if(args.profile or "", enabled=bool(args.profile), device=device):
+    first = device[0] if isinstance(device, (list, tuple)) else device
+    with trace_if(args.profile or "", enabled=bool(args.profile), device=first):
         for _ in range(args.steps):
             t0 = time.perf_counter()
             call()
@@ -284,14 +411,22 @@ def _reset_peak(device: torch.device) -> None:
         torch.cuda.reset_peak_memory_stats(device)
 
 
-def _run_peak(device: torch.device):
-    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+def _largest_peak(device: torch.device, mesh=None):
+    """The largest rank's peak allocated bytes since ``_reset_peak`` (None
+    off the card)."""
+    if device.type != "cuda":
+        return None
+    return int(_gathered([torch.cuda.max_memory_allocated(device)], mesh, device).max())
 
 
-def _resident(rng, shape, device: torch.device, dtype=np.uint8) -> torch.Tensor:
+def _resident(rng, shape, device: torch.device, dtype=np.uint8, rows: slice = slice(None)) -> torch.Tensor:
+    """A seeded batch of ``shape`` on the host; ``rows`` of it on ``device``
+    (a rank's rows of the global batch)."""
     if dtype == np.uint8:
-        return torch.from_numpy(rng.integers(0, 256, size=shape).astype(np.uint8)).to(device)
-    return torch.from_numpy(rng.random(shape).astype(dtype)).to(device)
+        batch = rng.integers(0, 256, size=shape).astype(np.uint8)
+    else:
+        batch = rng.random(shape).astype(dtype)
+    return torch.from_numpy(batch[rows]).to(device)
 
 
 def _make_auto_store(path: str, n: int, size: int, codec_name: str) -> None:
@@ -304,10 +439,11 @@ def _make_auto_store(path: str, n: int, size: int, codec_name: str) -> None:
             w.add(rng.integers(0, 256, size=(size, size, 1)).astype(np.uint8), codec=codec)
 
 
-def _seg_bench(args, device: torch.device) -> int:
+def _seg_bench(args, device: torch.device, mesh=None) -> int:
     """U-Net segmentation train-step throughput (the reference's canonical
     seg config: U-Net(resnet18), 224², batch 128 a card). Resident uint8
-    batch + the device-side paired augmentation the trainer runs."""
+    batch + the device-side paired augmentation the trainer runs; under
+    ``mesh`` each rank takes its rows of the global batch and draws."""
     from medical_image_segmentation_tpu_torch.core.hbm import preserved
     from medical_image_segmentation_tpu_torch.ops.augment import segmentation_augment
     from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
@@ -315,20 +451,21 @@ def _seg_bench(args, device: torch.device) -> int:
     if args.store is not None or args.precrop:
         raise SystemExit("--task seg benchmarks device-resident batches "
                          "(paired stores are exercised by the trainer tests)")
+    chips, rows, shard = _data_split(args.batch_size, mesh)
     size = (args.image_size, args.image_size)
     task = SegmentationTask(
         arch=args.arch, n_classes=1, in_channels=1, learning_rate=1.0,
-        warmup_epochs=10, max_epochs=50, steps_per_epoch=100, remat=args.remat, device=device,
+        warmup_epochs=10, max_epochs=50, steps_per_epoch=100, remat=args.remat, device=device, mesh=mesh,
     )
     task.init(0)
     gen = torch.Generator(device=device).manual_seed(1)
     rng = np.random.default_rng(0)
-    imgs = _resident(rng, (args.batch_size, *size, 1), device)
-    msks = torch.from_numpy((rng.random((args.batch_size, *size, 1)) < 0.2).astype(np.uint8)).to(device)
+    imgs = _resident(rng, (args.batch_size, *size, 1), device, rows=rows)
+    msks = torch.from_numpy((rng.random((args.batch_size, *size, 1)) < 0.2).astype(np.uint8)[rows]).to(device)
 
     def step():
         x, y = segmentation_augment(gen, imgs, msks, size, (LIVER_MEAN,), (LIVER_STD,), train=True,
-                                    dtype=torch.bfloat16)
+                                    dtype=torch.bfloat16, shard=shard)
         return task.train_step(x, y)
 
     if args.hbm_check:
@@ -337,54 +474,58 @@ def _seg_bench(args, device: torch.device) -> int:
                 step()
 
         return _hbm_check_exit(probe, "seg", device, {"batch_size": args.batch_size,
-                                                      "image_size": args.image_size})
+                                                      "image_size": args.image_size}, mesh)
     _reset_peak(device)
-    dt, probe_lat, metrics = _time_steps(step, args, device)
-    mem = _memory_report(_run_peak(device), device)
+    dt, probe_lat, metrics = _time_steps(step, args, device, mesh)
+    mem = _memory_report(_largest_peak(device, mesh), device)
     final_loss = float(metrics["train/loss"])
-    per_chip = args.batch_size * args.steps / dt
+    total = args.batch_size * args.steps / dt
     disp = _dispersion_fields(probe_lat, dt / args.steps * 1e3, "seg")
-    flops = _step_flops(step)
-    print(f"[seg] loss={final_loss:.4f} total={per_chip:.0f} img/s "
-          f"({dt/args.steps*1e3:.1f} ms/step)", file=sys.stderr)
-    print(json.dumps({
+    flops = _total_flops(step, mesh, device)
+    _say(f"[seg] loss={final_loss:.4f} total={total:.0f} img/s "
+         f"({dt/args.steps*1e3:.1f} ms/step)", mesh)
+    _emit({
         "metric": "seg_train_images_per_sec_per_chip",
-        "value": round(per_chip, 1),
+        **_rate_fields(total, chips, 1),
         "unit": "images/sec/chip",
-        "mode": "device", "task": "seg", "mfu": _mfu(flops, args.steps, dt, device),
+        "mode": "device", "task": "seg", "mfu": _mfu(flops, args.steps, dt, device, chips),
         "image_size": args.image_size, "batch_size": args.batch_size, "steps_run": _steps_run(args),
         **disp,
         **_hbm_json_fields(mem),
-        **_card_fields(device),
-    }))
+        **_card_fields(device, mesh),
+    }, mesh)
     return 0
 
 
-def _seg3d_bench(args, device: torch.device) -> int:
+def _seg3d_bench(args, device: torch.device, mesh=None) -> int:
     """3D U-Net volumetric train-step throughput (``train_segmentation3d``
     defaults: stored (64,96,96) volumes → random (32,64,64) crops). The
-    network runs in ``channels_last_3d``; shapes are given as (D, H, W)."""
+    network runs in ``channels_last_3d``; shapes are given as (D, H, W).
+    Under ``mesh`` each rank takes its rows of the global batch and
+    draws."""
     from medical_image_segmentation_tpu_torch.core.hbm import preserved
     from medical_image_segmentation_tpu_torch.ops.augment3d import segmentation_augment_3d
     from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
 
     if args.store is not None or args.precrop:
         raise SystemExit("--task seg3d benchmarks device-resident batches")
+    chips, rows, shard = _data_split(args.batch_size, mesh)
     vol = tuple(args.volume_size)
     crop = tuple(args.crop3d)
     task = Segmentation3DTask(
         features=tuple(args.features3d),
         learning_rate=1.0, warmup_epochs=10, max_epochs=50, steps_per_epoch=100,
-        remat=args.remat, device=device,
+        remat=args.remat, device=device, mesh=mesh,
     )
     task.init(0)
     gen = torch.Generator(device=device).manual_seed(1)
     rng = np.random.default_rng(0)
-    vols = _resident(rng, (args.batch_size, *vol, 1), device, np.float32)
-    msks = torch.from_numpy((rng.random((args.batch_size, *vol, 1)) < 0.2).astype(np.float32)).to(device)
+    vols = _resident(rng, (args.batch_size, *vol, 1), device, np.float32, rows)
+    msks = torch.from_numpy((rng.random((args.batch_size, *vol, 1)) < 0.2).astype(np.float32)[rows]).to(device)
 
     def step():
-        x, y = segmentation_augment_3d(gen, vols, msks, out_size=crop, train=True, dtype=torch.bfloat16)
+        x, y = segmentation_augment_3d(gen, vols, msks, out_size=crop, train=True, dtype=torch.bfloat16,
+                                       shard=shard)
         return task.train_step(x, y)
 
     if args.hbm_check:
@@ -393,66 +534,75 @@ def _seg3d_bench(args, device: torch.device) -> int:
                 step()
 
         return _hbm_check_exit(probe, "seg3d", device, {"batch_size": args.batch_size,
-                                                        "features": list(args.features3d)})
+                                                        "features": list(args.features3d)}, mesh)
     _reset_peak(device)
-    dt, probe_lat, metrics = _time_steps(step, args, device)
-    mem = _memory_report(_run_peak(device), device)
+    dt, probe_lat, metrics = _time_steps(step, args, device, mesh)
+    mem = _memory_report(_largest_peak(device, mesh), device)
     final_loss = float(metrics["train/loss"])
-    per_chip = args.batch_size * args.steps / dt
+    total = args.batch_size * args.steps / dt
     disp = _dispersion_fields(probe_lat, dt / args.steps * 1e3, "seg3d")
-    flops = _step_flops(step)
-    print(f"[seg3d] loss={final_loss:.4f} total={per_chip:.1f} vol/s "
-          f"({dt/args.steps*1e3:.1f} ms/step, crop {crop})", file=sys.stderr)
-    print(json.dumps({
+    flops = _total_flops(step, mesh, device)
+    _say(f"[seg3d] loss={final_loss:.4f} total={total:.1f} vol/s "
+         f"({dt/args.steps*1e3:.1f} ms/step, crop {crop})", mesh)
+    _emit({
         "metric": "seg3d_train_volumes_per_sec_per_chip",
-        "value": round(per_chip, 2),
+        **_rate_fields(total, chips, 2),
         "unit": "volumes/sec/chip",
-        "mode": "device", "task": "seg3d", "mfu": _mfu(flops, args.steps, dt, device),
+        "mode": "device", "task": "seg3d", "mfu": _mfu(flops, args.steps, dt, device, chips),
         "features": list(args.features3d), "volume": list(vol), "crop": list(crop),
         "batch_size": args.batch_size, "steps_run": _steps_run(args),
         **disp,
         **_hbm_json_fields(mem),
-        **_card_fields(device),
-    }))
+        **_card_fields(device, mesh),
+    }, mesh)
     return 0
 
 
-def _predict_bench(args, device: torch.device) -> int:
+def _predict_bench(args, device: torch.device, mesh=None) -> int:
     """Serving-path inference throughput: the SAME function
     ``train/predict.py`` runs and ``mis-export-torch`` captures
     (``serve.make_predict_fn``: uint8 in → normalize → U-Net eval forward →
     sigmoid-threshold mask out), batched, bf16 (``--fp32``: f32). Reports
     img/s plus per-batch latency percentiles, each batch synchronised (the
     masks stay on the card: their copy to the host is not an inference
-    cost)."""
+    cost). Every device ``--device`` names on this host
+    (``parallel/replicas.py::local_devices``) takes its share of each batch
+    through ``Replicas``, as ``mis-predict-torch`` serves."""
+    from medical_image_segmentation_tpu_torch.parallel import replicas
     from medical_image_segmentation_tpu_torch.serve import export_predictor, make_predict_fn
     from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
 
     if args.store is not None or args.precrop:
         raise SystemExit("--task predict benchmarks device-resident batches")
+    devices = replicas.local_devices(args.device)
+    chips = len(devices)
+    _refuse_indivisible(args.batch_size, chips)
+    device = devices[0] if chips > 1 else device
     task = SegmentationTask(
         arch=args.arch, n_classes=1, in_channels=1, learning_rate=1.0,
         warmup_epochs=0, max_epochs=1, steps_per_epoch=1,
         dtype=torch.float32 if args.fp32 else torch.bfloat16, device=device,
     )
     task.init(0)
-    predict = make_predict_fn(task, LIVER_MEAN, LIVER_STD)
+    predict = make_predict_fn(task, LIVER_MEAN, LIVER_STD, logits=task.replicas(devices) if chips > 1 else None)
     rng = np.random.default_rng(0)
     shape = (args.batch_size, args.image_size, args.image_size, 1)
     imgs = _resident(rng, shape, device)
     if args.hbm_check:
         return _hbm_check_exit(lambda: predict(imgs), "predict", device,
                                {"batch_size": args.batch_size, "image_size": args.image_size})
-    lat = _time_calls(lambda: predict(imgs), args, device)
+    lat = _time_calls(lambda: predict(imgs), args, devices)
     dt = float(lat.sum())
-    per_chip = args.batch_size * args.steps / dt
+    total = args.batch_size * args.steps / dt
     out_extra = {}
     if args.exported:
-        # the same weights captured at this batch bucket (a .misx bucket's
-        # program), saved, loaded and called directly, as ServingPredictor
-        # calls it, without its numpy copies
+        # the same weights captured at one device's share of this batch (a
+        # .misx bucket's program), saved, loaded and called directly, as
+        # ServingPredictor calls it, without its numpy copies
+        ex_b = args.batch_size // chips
+        shape = (ex_b, *shape[1:])
         program = export_predictor(task, args.image_size, LIVER_MEAN, LIVER_STD,
-                                   batch_sizes=(args.batch_size,))[args.batch_size]
+                                   batch_sizes=(ex_b,))[ex_b]
         buf = io.BytesIO()
         torch.export.save(program, buf)
         t0 = time.perf_counter()
@@ -463,34 +613,35 @@ def _predict_bench(args, device: torch.device) -> int:
         with torch.no_grad():
             ex_lat = _time_calls(lambda: ex_call(ex_imgs), args, device)
         out_extra = {
-            "exported_images_per_sec_per_chip": round(args.batch_size * args.steps / float(ex_lat.sum()), 1),
-            "exported_batch": args.batch_size,
+            "exported_images_per_sec_per_chip": round(ex_b * args.steps / float(ex_lat.sum()), 1),
+            "exported_batch": ex_b,
             "exported_latency_ms_p50": round(float(np.percentile(ex_lat, 50)) * 1e3, 2),
             "exported_latency_ms_p99": round(float(np.percentile(ex_lat, 99)) * 1e3, 2),
         }
         print(f"[predict --exported] {out_extra['exported_images_per_sec_per_chip']:.0f} img/s "
-              f"(batch {args.batch_size}, p50 {out_extra['exported_latency_ms_p50']:.1f} ms, "
+              f"(batch {ex_b}, p50 {out_extra['exported_latency_ms_p50']:.1f} ms, "
               f"p99 {out_extra['exported_latency_ms_p99']:.1f} ms)", file=sys.stderr)
     flops = _step_flops(lambda: predict(imgs))
-    print(f"[predict] total={per_chip:.0f} img/s "
-          f"(batch {args.batch_size} @ {args.image_size}², "
+    print(f"[predict] total={total:.0f} img/s "
+          f"(batch {args.batch_size} @ {args.image_size}² over {chips} device(s), "
           f"p50 {np.percentile(lat,50)*1e3:.1f} ms, p99 {np.percentile(lat,99)*1e3:.1f} ms)",
           file=sys.stderr)
     print(json.dumps({
         "metric": "predict_images_per_sec_per_chip",
-        "value": round(per_chip, 1),
+        **_rate_fields(total, chips, 1),
         "unit": "images/sec/chip",
-        "mode": "device", "task": "predict", "mfu": _mfu(flops, args.steps, dt, device),
+        "mode": "device", "task": "predict", "mfu": _mfu(flops, args.steps, dt, device, chips),
         "image_size": args.image_size, "fp32": args.fp32, "batch_size": args.batch_size,
         "batch_latency_ms_p50": round(float(np.percentile(lat, 50)) * 1e3, 2),
         "batch_latency_ms_p99": round(float(np.percentile(lat, 99)) * 1e3, 2),
         **out_extra,
         **_card_fields(device),
+        "gpus": len({_card_key(d) for d in devices} - {0.0}), "devices": chips,
     }))
     return 0
 
 
-def _predict3d_bench(args, device: torch.device) -> int:
+def _predict3d_bench(args, device: torch.device, mesh=None) -> int:
     """Volumetric serving-path throughput: whole-volume masks by overlapped
     sliding-window blending, END-TO-END per volume (window extraction +
     batched 3D U-Net forwards + Hann blend, all on the card): vol/s and
@@ -544,6 +695,7 @@ def _predict3d_bench(args, device: torch.device) -> int:
         "metric": "predict3d_volumes_per_sec_per_chip",
         "value": round(vols_per_sec, 2),
         "unit": "volumes/sec/chip",
+        "total_per_sec": vols_per_sec,
         "mode": "device", "task": "predict3d", "mfu": _mfu(flops, n_batches * args.steps, dt, device),
         "sw_mode": "loop" if args.sw_loop else "fused",
         "volume": list(vol), "window": list(window),
@@ -555,13 +707,16 @@ def _predict3d_bench(args, device: torch.device) -> int:
     return 0
 
 
-def _byol_bench(args, device: torch.device) -> int:
+def _byol_bench(args, device: torch.device, mesh=None) -> int:
     """Two-view augmentation + BYOL train step, from a resident batch
-    (device mode) or through the store ``Loader`` (store mode)."""
+    (device mode) or through the store ``Loader`` (store mode). Under
+    ``mesh`` each rank takes its rows of the global batch and of the
+    global batch's draws, and in store mode reads its shard of the store."""
     from medical_image_segmentation_tpu_torch.data.device_feed import device_batches
     from medical_image_segmentation_tpu_torch.data.loader import RANDOM, Loader
     from medical_image_segmentation_tpu_torch.ops.augment import BYOL_VIEW1, BYOL_VIEW2, two_view_tail_augment
     from medical_image_segmentation_tpu_torch.ops.fused_augment import fused_two_view_augment
+    from medical_image_segmentation_tpu_torch.parallel.mesh import layout_from_env
     from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
 
     if args.hbm_check:
@@ -570,12 +725,14 @@ def _byol_bench(args, device: torch.device) -> int:
         raise SystemExit("--warmup must be >= 1")
     if args.precrop and args.store is None:
         raise SystemExit("--precrop requires --store")
+    chips, rows, shard = _data_split(args.batch_size, mesh)
+    per_rank = args.batch_size // chips
 
     task = BYOLTask(
         arch=args.arch, in_channels=1, hidden_dim=4096, proj_dim=256,
         num_classes=10, total_steps=100_000,
         learning_rate=1.0, warmup_epochs=10, max_epochs=200,
-        remat=args.remat, device=device,
+        remat=args.remat, device=device, mesh=mesh,
     )
     task.init(0)
     crop = (args.crop_size, args.crop_size)
@@ -587,40 +744,44 @@ def _byol_bench(args, device: torch.device) -> int:
         def augment(views):
             # views: (2B, crop, crop, 1) uint8, crop/resize/flip already done
             # by the loader's workers; only the elementwise tail runs here
-            return two_view_tail_augment(gen, views, cfg1, cfg2)
+            return two_view_tail_augment(gen, views, cfg1, cfg2, shard=shard)
     else:
         def augment(raw):
-            return fused_two_view_augment(raw, cfg1, cfg2, generator=gen)
+            return fused_two_view_augment(raw, cfg1, cfg2, generator=gen, shard=shard)
 
     rng = np.random.default_rng(0)
     # the resident batch of device mode and of the FLOP count: the shape the
-    # step takes, full images or 2x pre-cropped views
-    probe_shape = ((2 * args.batch_size, *crop, 1) if args.precrop
-                   else (args.batch_size, args.image_size, args.image_size, 1))
-    probe = _resident(rng, probe_shape, device)
+    # step takes, full images or 2x pre-cropped views (this rank's rows)
+    if args.precrop:
+        probe = _resident(rng, (args.batch_size, 2, *crop, 1), device, rows=rows).flatten(0, 1)
+    else:
+        probe = _resident(rng, (args.batch_size, args.image_size, args.image_size, 1), device, rows=rows)
 
     mode = "device" if args.store is None else "store"
     loader = feed = tmpdir = None
-    threads = args.num_threads or (os.cpu_count() or 4)
+    layout = layout_from_env() if mesh is not None else None
+    threads = args.num_threads or max(1, (os.cpu_count() or 4) // (layout.local_world_size if layout else 1))
     try:
         if mode == "store":
             store_path = args.store
             if store_path == "auto":
+                # every rank writes the same store from the same seed, in a
+                # directory of its own
                 tmpdir = tempfile.mkdtemp()
                 store_path = os.path.join(tmpdir, "bench.mis")
                 _make_auto_store(store_path, args.store_images, args.image_size, args.store_codec)
-                print(f"synthetic {args.store_codec} store: "
-                      f"{os.path.getsize(store_path)/1e6:.1f} MB, {args.store_images} images", file=sys.stderr)
+                _say(f"synthetic {args.store_codec} store: "
+                     f"{os.path.getsize(store_path)/1e6:.1f} MB, {args.store_images} images", mesh)
             loader = Loader(
-                store_path, args.batch_size, order=RANDOM, num_threads=threads,
-                out_hw=(args.image_size, args.image_size),
+                store_path, per_rank, order=RANDOM, num_threads=threads,
+                out_hw=(args.image_size, args.image_size), shard=shard,
                 precrop={"out_hw": crop} if args.precrop else None,
             )
             if loader.channels != 1:
                 raise SystemExit("bench expects a grayscale (1-channel) store")
             if len(loader) == 0:
                 raise SystemExit(f"the store holds {loader.num_samples} images, fewer than one batch of "
-                                 f"{args.batch_size}")
+                                 f"{per_rank}" + (f" in each of {chips} ranks" if chips > 1 else ""))
 
             def batches():
                 while True:  # loop epochs; each gets a fresh permutation
@@ -636,21 +797,21 @@ def _byol_bench(args, device: torch.device) -> int:
             def step():
                 return task.train_step(*augment(probe))
 
-        dt, probe_lat, metrics = _time_steps(step, args, device)
+        dt, probe_lat, metrics = _time_steps(step, args, device, mesh)
         final_loss = float(metrics["loss"])
-        per_chip = args.batch_size * args.steps / dt
+        total = args.batch_size * args.steps / dt
         disp = _dispersion_fields(probe_lat, dt / args.steps * 1e3, "byol")
-        flops = _step_flops(lambda: task.train_step(*augment(probe)))
-        mfu = _mfu(flops, args.steps, dt, device)
-        print(
-            f"[{mode}] loss={final_loss:.4f} total={per_chip:.0f} img/s "
+        flops = _total_flops(lambda: task.train_step(*augment(probe)), mesh, device)
+        mfu = _mfu(flops, args.steps, dt, device, chips)
+        _say(
+            f"[{mode}] loss={final_loss:.4f} total={total:.0f} img/s "
             f"({dt/args.steps*1e3:.1f} ms/step)"
             + (f" step_flops={flops/1e9:.1f} GF mfu={mfu:.1%}" if mfu is not None else ""),
-            file=sys.stderr,
+            mesh,
         )
         out = {
             "metric": "aug_train_images_per_sec_per_chip",
-            "value": round(per_chip, 1),
+            **_rate_fields(total, chips, 1),
             "unit": "images/sec/chip",
             "mode": mode, "task": "byol",
             "mfu": mfu,
@@ -662,7 +823,7 @@ def _byol_bench(args, device: torch.device) -> int:
             # bytes the loader ships per image: 2 crop² views in precrop
             # mode, full frames else
             shipped = 2 * args.crop_size * args.crop_size if args.precrop else args.image_size * args.image_size
-            out["loader_gbytes_per_sec"] = round(per_chip * shipped / 1e9, 3)
+            out["loader_gbytes_per_sec"] = round(total * shipped / 1e9, 3)
             out["num_decode_threads"] = threads
             out["precrop"] = args.precrop
             out["h2d_bytes_per_batch"] = args.batch_size * shipped
@@ -670,9 +831,9 @@ def _byol_bench(args, device: torch.device) -> int:
             for stage, (tot, n) in loader.timers.snapshot().items():
                 out[f"{stage}_ms_per_batch"] = round(tot / max(n, 1) * 1e3, 2)
                 out[f"{stage}_batches_timed"] = n
-            print(loader.timers.report(), file=sys.stderr)
-        out.update(_card_fields(device))
-        print(json.dumps(out))
+            _say(loader.timers.report(), mesh)
+        out.update(_card_fields(device, mesh))
+        _emit(out, mesh)
     finally:
         if feed is not None:
             feed.close()
@@ -684,7 +845,8 @@ def _byol_bench(args, device: torch.device) -> int:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description="End-to-end benchmark of the PyTorch/CUDA port on one GPU.")
+    ap = argparse.ArgumentParser(description="End-to-end benchmark of the PyTorch/CUDA port on one GPU, or on "
+                                             "every GPU of a torchrun launch.")
     ap.add_argument("--batch_size", type=int, default=None,
                     help="default: 1024 (byol), 128 (seg), 4 (seg3d), "
                          "256 (predict), 8 windows (predict3d)")
@@ -747,8 +909,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="seg3d: UNet3D stage widths (matches "
                          "train_segmentation3d --features)")
     ap.add_argument("--device", default="cuda",
-                    help="the card to measure (cuda or cuda:N; one a process); "
-                         "cpu is for the tests and measures no device")
+                    help="cuda: the rank's card under torchrun (cuda:LOCAL_RANK), and every visible card "
+                         "for predict; cuda:N: that card; cpu is for the tests and measures no device")
     args = ap.parse_args(argv)
     if args.steps < 1:
         ap.error("--steps must be >= 1")
@@ -762,19 +924,38 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
+    from medical_image_segmentation_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh, shutdown_distributed,
+    )
+
     args = parse_args(argv)
     device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            print(f"bench_torch: --device {args.device} asked for, but torch.cuda.is_available() is false: "
-                  "there is no CUDA card to measure (--device cpu runs the tests' toy sizes and measures "
-                  "no device)", file=sys.stderr)
-            return 3
-        if device.index is not None:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"bench_torch: --device {args.device} asked for, but torch.cuda.is_available() is false: "
+              "there is no CUDA card to measure (--device cpu runs the tests' toy sizes and measures "
+              "no device)", file=sys.stderr)
+        return 3
+    # a group the caller joined before stays joined; one joined here is left
+    # at the end
+    joined_here = not dist.is_initialized()
+    proc = initialize_distributed(args.device)
+    try:
+        if proc.world_size > 1 and args.task in ("predict", "predict3d"):
+            raise SystemExit(f"--task {args.task} runs in one process ({proc.world_size} ranks asked for): "
+                             "bench.py runs no process group for serving; a bare --device cuda serves on "
+                             "every local card from one process")
+        device = proc.device
+        if device.type == "cuda":
             torch.cuda.set_device(device)
-        torch.backends.cudnn.benchmark = True
-    return {"byol": _byol_bench, "seg": _seg_bench, "seg3d": _seg3d_bench,
-            "predict": _predict_bench, "predict3d": _predict3d_bench}[args.task](args, device)
+            torch.backends.cudnn.benchmark = True
+        mesh = make_mesh(("data",), device=device) if proc.backend is not None else None
+        return {"byol": _byol_bench, "seg": _seg_bench, "seg3d": _seg3d_bench,
+                "predict": _predict_bench, "predict3d": _predict3d_bench}[args.task](args, device, mesh)
+    finally:
+        if joined_here:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -245,6 +245,20 @@ The port's benchmark programs (after seg3d_step):
    once a step it took (warmup, timed, probe and the FLOP count's) or
    another task launched it at all. cuDNN's TF32 is back at PyTorch's
    default (on) for this phase, as a standalone bench run has it.
+24. bench_ranks: ``bench_torch.py`` over the ranks of a launch and over
+   replicas, on the one card (TF32 as in phase 23). byol and seg as the
+   one rank of an NCCL group (torchrun's variables at world 1, in this
+   process) at phase 23's flags; byol at a global batch of 256 and seg3d in
+   two spawned ranks sharing ``cuda:0`` over gloo (NCCL refuses two ranks
+   on one card: these lines measure the mechanism, not scaling); then
+   ``--task predict`` with ``local_devices`` forced to two replicas on
+   ``cuda:0``. Each line is printed as ``[bench_ranks_<run>] {...}``. Fails
+   unless each line names its group (``ranks``, ``backend``) and one card
+   (``gpus`` 1), ``value`` is ``total_per_sec`` over the ranks or devices,
+   rank 1 printed nothing on stdout, each rank launched
+   ``two_view_augment`` once a step of byol it took (and never in the
+   other tasks), and the predict line says ``devices`` 2. Prints the NCCL
+   lines' values over phase 23's one-process values.
 
 TF32 is off for both cuDNN and cuBLAS, so every f32 op here is full f32;
 the training steps run in bf16 under autocast, which TF32 does not touch.
@@ -253,7 +267,8 @@ port needs none). The last lines are the card, the kernels' JSON record (with
 ``launches_jpeg_store_path``, the launches of phase 6b,
 ``launches_data_parallel_path``, the kernel launches of each rank in
 dist_train, ``launches_nccl_path``, ``launches_bench_path``, the
-launches of the bench's byol runs, and ``launches_space_path`` and
+launches of the bench's byol runs, ``launches_bench_ranks_path``, the
+launches of phase 24's byol runs by rank, and ``launches_space_path`` and
 ``launches_multicard_path``, which must be 0) and ``{"ok": true, "device":
 {...}}``. The run also fails if the port loaded
 ``jax`` or any module of the JAX package.
@@ -3326,7 +3341,7 @@ def captured_main(main, argv):
 def run_bench_programs(torch, fa, card: str) -> int:
     """``bench_torch.py`` for each task and ``tools/bench_loader_torch.py``,
     in this process (phase 23). Returns the kernel's launches in the byol
-    runs."""
+    runs and each run's ``value``."""
     import bench_torch
 
     spec = importlib.util.spec_from_file_location("bench_loader_torch", os.path.join(ROOT, "tools",
@@ -3335,7 +3350,7 @@ def run_bench_programs(torch, fa, card: str) -> int:
     spec.loader.exec_module(loader_tool)
     steps_run = 2 + 5 + 5 + 1  # warmup, timed, the probe's min(steps, 12), the FLOP count's
     byol_launches = 0
-    seconds = {}
+    seconds, values = {}, {}
     torch.backends.cudnn.allow_tf32 = True
     try:
         for name, argv in BENCH_RUNS.items():
@@ -3348,6 +3363,7 @@ def run_bench_programs(torch, fa, card: str) -> int:
             check(rc == 0 and lines, f"bench_torch {' '.join(argv)}: exit {rc}, {len(lines)} lines")
             line = json.loads(lines[-1])
             print(f"[bench_{name}] {json.dumps(line)}", flush=True)
+            values[name] = line.get("value")
             task = name.split("_")[0]
             check(line.get("metric") == BENCH_METRICS[task], f"bench {name}: metric {line.get('metric')!r}")
             check(isinstance(line.get("mfu"), float) and line["mfu"] > 0, f"bench {name}: mfu {line.get('mfu')!r}")
@@ -3379,7 +3395,195 @@ def run_bench_programs(torch, fa, card: str) -> int:
         torch.backends.cudnn.allow_tf32 = False
     phase("bench", runs=len(BENCH_RUNS), byol_launches=byol_launches, hbm_check_exit=hbm_rc, seconds=seconds,
           card=repr(card))
-    return byol_launches
+    return byol_launches, values
+
+
+# bench_torch.py over the ranks of a launch (phase 24)
+BENCH_RANKS_NCCL = {"byol": ["--task", "byol"], "seg": ["--task", "seg"]}
+BENCH_RANKS_GLOO = {"byol": ["--task", "byol", "--batch_size", "256"], "seg3d": ["--task", "seg3d"]}
+BENCH_RANKS = 2
+BENCH_RANKS_PREDICT = ["--task", "predict"]
+BENCH_REPLICAS = ("cuda:0", "cuda:0")                 # two replicas on the one card
+BENCH_VALUE_DIGITS = {"seg3d": 2}                     # the line's rounding of value (1 elsewhere)
+
+BENCH_RANKS_RUNNER = r"""
+import contextlib, io, json, os, sys, traceback
+root, out_path, device = sys.argv[1:4]
+runs = json.loads(sys.argv[4])
+sys.path.insert(0, root)
+import torch
+import bench_torch
+from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
+from medical_image_segmentation_tpu_torch.parallel.mesh import initialize_distributed, shutdown_distributed
+
+out = {"ok": False, "rank": int(os.environ["RANK"]), "runs": {}}
+try:
+    torch.backends.cudnn.allow_tf32 = True
+    proc = initialize_distributed(device)
+    out.update(backend=proc.backend, device=str(proc.device), sharing=proc.ranks_per_device)
+    for name, argv in runs.items():
+        fa.fused_two_view_augment.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_torch.main(argv)
+        out["runs"][name] = {"rc": rc, "stdout": buf.getvalue().strip().splitlines(),
+                             "launches": fa.fused_two_view_augment.launches}
+    out["ok"] = True
+except BaseException:
+    out["error"] = traceback.format_exc()
+finally:
+    shutdown_distributed()
+with open(out_path, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def check_bench_ranks_line(name: str, line: dict, ranks: int, backend: str, chips: int) -> None:
+    """The group's fields of a bench line and ``value`` = ``total_per_sec``
+    over the chips, at the line's rounding."""
+    task = name.split("_")[0]
+    check(line.get("metric") == BENCH_METRICS[task], f"bench_ranks {name}: metric {line.get('metric')!r}")
+    check((line.get("ranks"), line.get("backend")) == (ranks, backend),
+          f"bench_ranks {name}: ranks {line.get('ranks')!r}, backend {line.get('backend')!r}")
+    on_card = BENCH_DEVICE == "cuda"
+    check(line.get("gpus") == (1 if on_card else 0), f"bench_ranks {name}: gpus {line.get('gpus')!r}")
+    total = line.get("total_per_sec")
+    check(isinstance(total, float) and total > 0 and
+          line["value"] == round(total / chips, BENCH_VALUE_DIGITS.get(task, 1)),
+          f"bench_ranks {name}: value {line.get('value')!r}, total_per_sec {total!r} over {chips}")
+    check(not on_card or (isinstance(line.get("mfu"), float) and line["mfu"] > 0),
+          f"bench_ranks {name}: mfu {line.get('mfu')!r}")
+
+
+def bench_nccl_runs(torch, fa) -> dict:
+    """BENCH_RANKS_NCCL in this process as the one rank of a torchrun
+    launch: the lines and each run's kernel launches."""
+    import bench_torch
+
+    steps_run = 2 + 5 + 5 + 1
+    out = {}
+    for name, argv in BENCH_RANKS_NCCL.items():
+        torch.cuda.empty_cache()
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        fa.fused_two_view_augment.launches = 0
+        try:
+            t0 = time.time()
+            rc, lines = captured_main(bench_torch.main, argv + BENCH_FLAGS + ["--device", BENCH_DEVICE])
+            seconds = time.time() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = fa.fused_two_view_augment.launches
+        check(rc == 0 and lines, f"bench_torch {' '.join(argv)} as one NCCL rank: exit {rc}")
+        line = json.loads(lines[-1])
+        print(f"[bench_ranks_nccl_{name}] {json.dumps(line)}", flush=True)
+        check_bench_ranks_line(name, line, 1, "nccl" if BENCH_DEVICE == "cuda" else "gloo", 1)
+        want = steps_run if name == "byol" else 0
+        check(launches == want, f"bench_ranks nccl {name} launched two_view_augment {launches} times, not {want}")
+        out[name] = {"line": line, "launches": launches, "seconds": round(seconds, 2)}
+    return out
+
+
+def bench_gloo_runs(workdir: str) -> dict:
+    """BENCH_RANKS_GLOO in BENCH_RANKS spawned ranks sharing the card over
+    gloo: rank 0's lines, and each rank's kernel launches by run."""
+    port = free_port()
+    outs = [os.path.join(workdir, f"bench_ranks{r}.json") for r in range(BENCH_RANKS)]
+    runs = {name: argv + BENCH_FLAGS + ["--device", BENCH_DEVICE] for name, argv in BENCH_RANKS_GLOO.items()}
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-c", BENCH_RANKS_RUNNER, ROOT, outs[r], BENCH_DEVICE,
+                               json.dumps(runs)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True,
+                              env={**env, "RANK": str(r), "WORLD_SIZE": str(BENCH_RANKS), "LOCAL_RANK": str(r),
+                                   "LOCAL_WORLD_SIZE": str(BENCH_RANKS), "MASTER_ADDR": "127.0.0.1",
+                                   "MASTER_PORT": str(port)})
+             for r in range(BENCH_RANKS)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=600)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.time() - t0
+    recs = []
+    for r, (p, path) in enumerate(zip(procs, outs)):
+        check(os.path.exists(path), f"bench_ranks rank {r} exited with code {p.returncode}:\n{errs[r][-3000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        check(rec["ok"], f"bench_ranks rank {r} failed:\n{rec.get('error')}\n{errs[r][-2000:]}")
+        check(rec["backend"] == "gloo", f"bench_ranks rank {r} joined {rec['backend']}")
+        recs.append(rec)
+    steps_run = 2 + 5 + 5 + 1
+    out = {"seconds": round(seconds, 2)}
+    for name in BENCH_RANKS_GLOO:
+        runs_r = [rec["runs"][name] for rec in recs]
+        check(all(run["rc"] == 0 for run in runs_r), f"bench_ranks gloo {name}: exits {[x['rc'] for x in runs_r]}")
+        check(runs_r[0]["stdout"] and all(not run["stdout"] for run in runs_r[1:]),
+              f"bench_ranks gloo {name}: stdout lines by rank {[len(x['stdout']) for x in runs_r]}")
+        line = json.loads(runs_r[0]["stdout"][-1])
+        print(f"[bench_ranks_gloo_{name}] {json.dumps(line)}", flush=True)
+        check_bench_ranks_line(name, line, BENCH_RANKS, "gloo", BENCH_RANKS)
+        want = steps_run if name == "byol" else 0
+        launches = [run["launches"] for run in runs_r]
+        check(launches == [want] * BENCH_RANKS,
+              f"bench_ranks gloo {name}: two_view_augment launched {launches} times by rank, not {want} each")
+        out[name] = {"line": line, "launches": launches}
+    return out
+
+
+def bench_replica_run(torch, fa) -> dict:
+    """``--task predict`` with ``local_devices`` forced to BENCH_REPLICAS."""
+    import bench_torch
+
+    from medical_image_segmentation_tpu_torch.parallel import replicas
+
+    torch.cuda.empty_cache()
+    chosen = replicas.local_devices
+    replicas.local_devices = lambda name: [torch.device(d) for d in BENCH_REPLICAS]
+    fa.fused_two_view_augment.launches = 0
+    try:
+        rc, lines = captured_main(bench_torch.main, [*BENCH_RANKS_PREDICT, *BENCH_FLAGS, "--device", BENCH_DEVICE])
+    finally:
+        replicas.local_devices = chosen
+    check(rc == 0 and lines, f"bench_torch --task predict over {BENCH_REPLICAS}: exit {rc}")
+    line = json.loads(lines[-1])
+    print(f"[bench_ranks_predict_replicas] {json.dumps(line)}", flush=True)
+    check(line.get("devices") == len(BENCH_REPLICAS), f"bench_ranks predict: devices {line.get('devices')!r}")
+    check_bench_ranks_line("predict", line, 1, None, len(BENCH_REPLICAS))
+    launches = fa.fused_two_view_augment.launches
+    check(launches == 0, f"bench_ranks predict launched two_view_augment {launches} times")
+    return {"line": line}
+
+
+def run_bench_ranks(torch, fa, workdir: str, one_process: dict, card: str) -> dict:
+    """Phase 24. ``one_process``: phase 23's values by run. Returns the
+    byol launches by route and rank."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        gloo = bench_gloo_runs(workdir)
+        nccl = bench_nccl_runs(torch, fa)
+        replica = bench_replica_run(torch, fa)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    over_one = {name: (round(run["line"]["value"] / one_process[name], 4) if one_process.get(name) else None)
+                for name, run in nccl.items()}
+    phase("bench_ranks", nccl_value_over_one_process=over_one,
+          nccl_seconds={name: run["seconds"] for name, run in nccl.items()}, gloo_seconds=gloo["seconds"],
+          gloo_byol_ms_per_step=gloo["byol"]["line"].get("step_ms_p50"),
+          predict_replicas_value=replica["line"]["value"], seconds=round(time.time() - t0, 2), card=repr(card))
+    return {"nccl": nccl["byol"]["launches"], "gloo": gloo["byol"]["launches"]}
 
 
 def main(argv=None) -> int:
@@ -3490,7 +3694,9 @@ def main(argv=None) -> int:
         check(serving_launches == 0, f"the serving path launched two_view_augment {serving_launches} times")
         check(space_launches == 0, f"the depth-sharded path launched two_view_augment {space_launches} times")
         check(multicard_launches == 0, f"the multi-device path launched two_view_augment {multicard_launches} times")
-        bench_launches = run_bench_programs(torch, fa, card)
+        bench_launches, bench_values = run_bench_programs(torch, fa, card)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
+            bench_ranks_launches = run_bench_ranks(torch, fa, workdir, bench_values, card)
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches,
                                      "launches_volumetric_path": vol_launches,
@@ -3500,7 +3706,8 @@ def main(argv=None) -> int:
                                      "launches_ingest_path": ingest_launches,
                                      "launches_jpeg_store_path": jpeg_launches,
                                      "launches_parity_path": parity_launches,
-                                     "launches_bench_path": bench_launches, **dist_record,
+                                     "launches_bench_path": bench_launches,
+                                     "launches_bench_ranks_path": bench_ranks_launches, **dist_record,
                                      **kernel_record}])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
