@@ -1,0 +1,8 @@
+"""The share of the traced window in which no operation ran on the device
+(the union of the trace's kernel, copy and fill intervals)."""
+
+from benchmark.harness.trace import idle_pct
+
+
+def read(run):
+    return idle_pct(run) if run.kind == "serve" else None
