@@ -1,15 +1,30 @@
-"""Profiling hooks: ``torch.profiler`` traces and per-stage wall timers.
+"""Profiling hooks: ``torch.profiler`` traces, the port's own spans and
+counters, and per-stage wall timers.
 
 Port of ``core/profiling.py:23-118``. ``StageTimers`` is a copy of the JAX
-package's; the ``Loader`` accumulates its "decode" stage there.
+package's; the ``Loader`` accumulates its "decode" and "wait" stages there.
 ``trace_if`` and ``StepProfiler`` record host activity, and the card's
 kernels when the device is CUDA, and write a Chrome trace (viewable in
 Perfetto or ``chrome://tracing``) where ``jax.profiler`` wrote an XProf
 trace.
 
+``span(name)`` and ``count(name, n)`` mark the port's own layers: the BYOL
+step's phases, the augmentation, global BatchNorm, the served request
+(``mis.<name>`` ranges) and the collectives (``comm.calls``,
+``comm.bytes``). They act only while a ``torch.profiler`` records, so they
+appear in every trace that ``--profile`` writes (and in any other profile
+of the process) and cost one ``torch.autograd._profiler_enabled()`` check
+otherwise. A span is a ``record_function`` range: it shares the profiler's
+clock with the device's kernels, nests under the span open on its thread,
+and the kernels a runtime call launches inside it can be put down to it by
+the call's correlation id.
+
 Usage:
     with trace_if(log_dir, enabled=args.profile, device=device):
         ... training steps ...
+
+    with span("train.forward"): ...
+    count("comm.bytes", t.numel() * t.element_size())
 
     timers = StageTimers()
     with timers.stage("decode"): ...
@@ -63,6 +78,39 @@ def trace_if(log_dir: str, enabled: bool = True, *, device):
         yield
     finally:
         _stop_trace(prof, device, log_dir)
+
+
+SPAN_PREFIX = "mis."
+_NO_SPAN = contextlib.nullcontext()
+_counters: Dict[str, int] = {}
+_counters_lock = threading.Lock()
+
+
+def span(name: str):
+    """A ``mis.<name>`` range of the profiler that records, or one shared
+    no-op context when none does."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records; nothing
+    otherwise. Safe from any thread (autograd's included)."""
+    if torch.autograd._profiler_enabled():
+        with _counters_lock:
+            _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A copy of every counter."""
+    with _counters_lock:
+        return dict(_counters)
+
+
+def reset_counters() -> None:
+    with _counters_lock:
+        _counters.clear()
 
 
 class StepProfiler:

@@ -36,7 +36,7 @@ RANDOM = "random"
 QUASI_RANDOM = "quasi_random"
 
 
-def prefetch_iter(make_items, prefetch: int, registry: Optional[set] = None):
+def prefetch_iter(make_items, prefetch: int, registry: Optional[set] = None, timers=None):
     """Run ``make_items()`` (a generator) on a background thread with a
     bounded queue. Exceptions propagate to the consumer; abandoning the
     iterator early unblocks, stops, AND JOINS the producer — an in-flight
@@ -45,7 +45,9 @@ def prefetch_iter(make_items, prefetch: int, registry: Optional[set] = None):
     before control returns. ``registry`` (a set owned by the Loader) gets a
     ``(stop_event, thread)`` handle for the producer's lifetime so
     ``Loader.close()`` can stop+join producers whose abandoned generators
-    have not been finalized yet (non-refcounting interpreters)."""
+    have not been finalized yet (non-refcounting interpreters). ``timers``
+    (a ``StageTimers``) gets the consumer's blocking wait for each item as
+    its "wait" stage: the time a step waits for data."""
     if prefetch <= 0:
         yield from make_items()
         return
@@ -88,7 +90,11 @@ def prefetch_iter(make_items, prefetch: int, registry: Optional[set] = None):
     t.start()
     try:
         while True:
-            item = q.get()
+            if timers is None:
+                item = q.get()
+            else:
+                with timers.stage("wait"):
+                    item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
@@ -180,7 +186,7 @@ class Loader:
         self.prefetch = prefetch
         self.epoch = 0
         # per-stage wall timers (SURVEY §5.1 — the reference has none);
-        # "decode" accumulates on the prefetch thread
+        # "decode" accumulates on the prefetch thread, "wait" on the consumer
         from medical_image_segmentation_tpu_torch.core.profiling import StageTimers
 
         self.timers = StageTimers()
@@ -308,7 +314,7 @@ class Loader:
                         batch = self._fetch(idxs)
                 yield batch
 
-        yield from prefetch_iter(gen, self.prefetch, registry=self._producers)
+        yield from prefetch_iter(gen, self.prefetch, registry=self._producers, timers=self.timers)
 
     def close(self):
         # a consumer may abandon an iterator mid-epoch (e.g. the KNN bank cap
@@ -385,7 +391,7 @@ class PairedLoader:
     def __iter__(self):
         # register on the image loader so close() joins our producer too
         yield from prefetch_iter(self._pairs, self.prefetch,
-                                 registry=self._imgs._producers)
+                                 registry=self._imgs._producers, timers=self.timers)
 
     def close(self):
         self._imgs.close()

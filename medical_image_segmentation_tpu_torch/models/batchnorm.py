@@ -28,7 +28,9 @@ and takes flax's variance E[x²] − E[x]²; the backward all-reduces
 gradients stay this rank's sums (the trainer averages every gradient over
 the group afterwards). The running statistics take the global mean and
 biased variance. With no group (one card) the cuDNN call above runs as
-before.
+before. Under a profiler the global path's three parts are spans
+(``bn.global_stats``, ``bn.global_normalize``, ``bn.global_backward``, the
+last on autograd's thread); the eval and one-card paths have none.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from medical_image_segmentation_tpu_torch.core.profiling import span
 from medical_image_segmentation_tpu_torch.parallel.mesh import all_reduce_, group_size
 
 
@@ -81,7 +84,7 @@ class BatchNorm(nn.Module):
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
         dims = [0, *range(2, x.ndim)]
-        with torch.no_grad():
+        with span("bn.global_stats"), torch.no_grad():
             xf = x.float()
             stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
                                torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)])
@@ -92,7 +95,8 @@ class BatchNorm(nn.Module):
             if not self.recomputing:
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
-        return _GlobalNormalize.apply(x, self.weight, self.bias, mean, torch.rsqrt(var + self.eps), n, self.group)
+            invstd = torch.rsqrt(var + self.eps)
+        return _GlobalNormalize.apply(x, self.weight, self.bias, mean, invstd, n, self.group)
 
 
 class _GlobalNormalize(torch.autograd.Function):
@@ -101,25 +105,27 @@ class _GlobalNormalize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, mean, invstd, n, group):
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
-        ctx.save_for_backward(x, weight, mean, invstd, n)
-        ctx.group = group
-        return (xhat * weight.view(shape) + bias.view(shape)).to(x.dtype)
+        with span("bn.global_normalize"):
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+            ctx.save_for_backward(x, weight, mean, invstd, n)
+            ctx.group = group
+            return (xhat * weight.view(shape) + bias.view(shape)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        x, weight, mean, invstd, n = ctx.saved_tensors
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        dims = [0, *range(2, x.ndim)]
-        c = x.shape[1]
-        dyf = dy.float()
-        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
-        local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
-        grad_bias, grad_weight = local[:c].clone(), local[c:].clone()
-        sums = all_reduce_(local, ctx.group)
-        dx = (weight * invstd).view(shape) * (dyf - (sums[:c] / n).view(shape) - xhat * (sums[c:] / n).view(shape))
-        return dx.to(x.dtype), grad_weight, grad_bias, None, None, None, None
+        with span("bn.global_backward"):
+            x, weight, mean, invstd, n = ctx.saved_tensors
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            dims = [0, *range(2, x.ndim)]
+            c = x.shape[1]
+            dyf = dy.float()
+            xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+            local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+            grad_bias, grad_weight = local[:c].clone(), local[c:].clone()
+            sums = all_reduce_(local, ctx.group)
+            dx = (weight * invstd).view(shape) * (dyf - (sums[:c] / n).view(shape) - xhat * (sums[c:] / n).view(shape))
+            return dx.to(x.dtype), grad_weight, grad_bias, None, None, None, None
 
 
 def set_group(modules: Iterable[torch.nn.Module], group) -> None:

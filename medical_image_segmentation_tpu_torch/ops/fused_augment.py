@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from medical_image_segmentation_tpu_torch.core.profiling import span
 from medical_image_segmentation_tpu_torch.ops.augment import LUMA, ViewConfig, keep_rows, sample_rrc_window
 
 PARAMS_PER_VIEW = 11
@@ -268,21 +269,23 @@ def fused_two_view_augment(
     is drawn from ``generator``: for the global batch under ``shard =
     (index, count)``, of which this data rank keeps its rows
     (``ops/augment.py::keep_rows``). ``fused_two_view_augment.launches``
-    counts kernel launches."""
-    if images.ndim == 3:
-        images = images.unsqueeze(-1)
-    b, in_h, in_w, c = images.shape
-    _check_configs(c, cfg1, cfg2, mean, std)
-    if params is None:
-        if generator is None:
-            raise ValueError("pass a generator or a params block")
-        params = keep_rows(sample_view_params(generator, b * shard[1], in_h, in_w, cfg1, cfg2), shard)
-    args = (params, images, cfg1.out_size, tuple(mean), tuple(std), float(cfg1.value_max), dtype)
-    if images.is_cuda:
-        return _launch(*args)
-    if images.device.type == "cpu":
-        return two_view_augment_reference(*args)
-    raise RuntimeError(f"no two_view_augment implementation for device {images.device}")
+    counts kernel launches. Under a profiler the call is an ``augment``
+    span (``core/profiling.py``)."""
+    with span("augment"):
+        if images.ndim == 3:
+            images = images.unsqueeze(-1)
+        b, in_h, in_w, c = images.shape
+        _check_configs(c, cfg1, cfg2, mean, std)
+        if params is None:
+            if generator is None:
+                raise ValueError("pass a generator or a params block")
+            params = keep_rows(sample_view_params(generator, b * shard[1], in_h, in_w, cfg1, cfg2), shard)
+        args = (params, images, cfg1.out_size, tuple(mean), tuple(std), float(cfg1.value_max), dtype)
+        if images.is_cuda:
+            return _launch(*args)
+        if images.device.type == "cpu":
+            return two_view_augment_reference(*args)
+        raise RuntimeError(f"no two_view_augment implementation for device {images.device}")
 
 
 fused_two_view_augment.launches = 0

@@ -27,6 +27,9 @@ own, so the same training is spelled out:
   zero-filled buffer that holds each rank's rows in place, and
   ``all_reduce_sum`` is a differentiable all-reduce written as an autograd
   function (its backward all-reduces the gradient).
+- Every collective issued here adds to the profiler counters ``comm.calls``
+  and ``comm.bytes`` (this rank's buffer: numel × element size) while a
+  profiler records (``core/profiling.py::count``).
 
 Backend rule: ``nccl`` when every rank of a host has a card of its own;
 ``gloo`` when ranks share a card (NCCL refuses two ranks on one device) or
@@ -47,6 +50,8 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from medical_image_segmentation_tpu_torch.core.profiling import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,10 +333,17 @@ def depth_slab(mesh: Optional[Mesh], depth: int) -> slice:
 # --- collectives --------------------------------------------------------------
 
 
+def _counted(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor``, counted as one collective's buffer."""
+    count("comm.calls")
+    count("comm.bytes", tensor.numel() * tensor.element_size())
+    return tensor
+
+
 def all_reduce_(tensor: torch.Tensor, group=None) -> torch.Tensor:
     """In-place sum over ``group``; nothing to do without a group."""
     if group is not None:
-        dist.all_reduce(tensor, group=group)
+        dist.all_reduce(_counted(tensor), group=group)
     return tensor
 
 
@@ -357,7 +369,7 @@ def all_reduce_mean_grads(params: Iterable[torch.nn.Parameter], group) -> None:
     n = group_size(group)
 
     def mean_(flat: torch.Tensor) -> None:
-        dist.all_reduce(flat, group=group)
+        dist.all_reduce(_counted(flat), group=group)
         flat.div_(n)
 
     grads = [p.grad for p in params if p.grad is not None]
@@ -372,7 +384,7 @@ def replicate(tensors: Iterable[torch.Tensor], mesh: Optional[Mesh], axis: str =
         return
     src, group = mesh.ranks(axis)[0], mesh.group(axis)
     _coalesced([t.data if isinstance(t, torch.nn.Parameter) else t for t in tensors],
-               lambda flat: dist.broadcast(flat, src=src, group=group))
+               lambda flat: dist.broadcast(_counted(flat), src=src, group=group))
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
@@ -380,7 +392,7 @@ def barrier(mesh: Optional[Mesh]) -> None:
     that gloo carries on a card's tensors too)."""
     if mesh is None or not dist.is_initialized():
         return
-    dist.broadcast(torch.zeros(1, device=mesh.device), src=0)
+    dist.broadcast(_counted(torch.zeros(1, device=mesh.device)), src=0)
 
 
 def global_mean(values: torch.Tensor, group) -> torch.Tensor:

@@ -41,6 +41,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from medical_image_segmentation_tpu_torch.core.profiling import span
 from medical_image_segmentation_tpu_torch.ops.augment import apply_hu_windows
 from medical_image_segmentation_tpu_torch.ops.dice import post_process_masks
 
@@ -74,12 +75,19 @@ def make_predict_fn(task, mean: Stats, std: Stats, threshold: float = 0.5,
     """(B, H, W, 1) uint8 on the task's device → (B, H, W, 1) uint8 masks.
     The compute dtype is the task's (bf16 autocast, or f32). ``logits``
     replaces ``task.logits`` (``task.replicas(devices)``: the batch split
-    over several devices)."""
+    over several devices). Under a profiler a call is a ``serve.request``
+    span holding ``serve.normalize``, ``serve.forward`` and
+    ``serve.post_process``."""
     logits_fn = task.logits if logits is None else logits
 
     def fn(imgs_u8: torch.Tensor) -> torch.Tensor:
-        logits = logits_fn(normalize_u8(imgs_u8, mean, std, hu_windows))
-        return post_process_masks(logits, threshold=threshold).to(torch.uint8)
+        with span("serve.request"):
+            with span("serve.normalize"):
+                x = normalize_u8(imgs_u8, mean, std, hu_windows)
+            with span("serve.forward"):
+                logits = logits_fn(x)
+            with span("serve.post_process"):
+                return post_process_masks(logits, threshold=threshold).to(torch.uint8)
 
     return fn
 

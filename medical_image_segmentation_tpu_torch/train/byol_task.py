@@ -44,6 +44,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from medical_image_segmentation_tpu_torch.core.profiling import span
 from medical_image_segmentation_tpu_torch.models.batchnorm import set_group
 from medical_image_segmentation_tpu_torch.models.byol import BYOLNet, Encoder
 from medical_image_segmentation_tpu_torch.ops.byol_loss import cosine_similarity_loss
@@ -141,39 +142,48 @@ class BYOLTask:
                    labels: Optional[torch.Tensor] = None) -> Dict[str, object]:
         """One BYOL step on a two-view NHWC batch (labels optional, for the
         probe). Returns ``loss``/``probe_loss``/``probe_acc`` as 0-d device
-        tensors (no sync) and ``lr``/``momentum`` as floats."""
+        tensors (no sync) and ``lr``/``momentum`` as floats. Under a profiler
+        the step is a ``mis.train.step`` span holding ``train.forward``,
+        ``train.backward``, ``train.grad_exchange``, ``train.update`` and
+        ``train.metrics``."""
         self.online.train()
         self.target.train()
-        x_online = torch.cat([view1, view2], dim=0)
-        x_target = torch.cat([view2, view1], dim=0)
-        with self._autocast():
-            with torch.no_grad():
-                z_tgt, _ = self.target(x_target)
-            p, _, _, probe_logits = self.online(x_online)
-            contrastive = cosine_similarity_loss(p, z_tgt)
-        zero = torch.zeros((), device=self.device)
-        probe_loss, probe_acc = zero, zero
-        if labels is not None:
-            y = torch.cat([labels, labels], dim=0).long()
-            probe_loss = F.cross_entropy(probe_logits.float(), y)
-            probe_acc = (probe_logits.argmax(dim=-1) == y).float().mean()
-        total = contrastive + self.probe_loss_weight * probe_loss
-
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        all_reduce_mean_grads(self._replicated, self._replica_group)
-        all_reduce_mean_grads(self._sharded, self._data_group)
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        tau = self.ema_schedule(self.step, self.total_steps)
-        with torch.no_grad():
-            torch._foreach_lerp_(self._target_enc, self._online_enc, 1.0 - tau)
-        self.step += 1
-        if self._data_group is not None:
-            contrastive, probe_loss, probe_acc = global_mean(
-                torch.stack([contrastive.detach(), probe_loss.detach(), probe_acc.float()]), self._data_group)
+        with span("train.step"):
+            with span("train.forward"):
+                x_online = torch.cat([view1, view2], dim=0)
+                x_target = torch.cat([view2, view1], dim=0)
+                with self._autocast():
+                    with torch.no_grad():
+                        z_tgt, _ = self.target(x_target)
+                    p, _, _, probe_logits = self.online(x_online)
+                    contrastive = cosine_similarity_loss(p, z_tgt)
+                zero = torch.zeros((), device=self.device)
+                probe_loss, probe_acc = zero, zero
+                if labels is not None:
+                    y = torch.cat([labels, labels], dim=0).long()
+                    probe_loss = F.cross_entropy(probe_logits.float(), y)
+                    probe_acc = (probe_logits.argmax(dim=-1) == y).float().mean()
+                total = contrastive + self.probe_loss_weight * probe_loss
+            with span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            with span("train.grad_exchange"):
+                all_reduce_mean_grads(self._replicated, self._replica_group)
+                all_reduce_mean_grads(self._sharded, self._data_group)
+            with span("train.update"):
+                lr = self.schedule(self.step)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+                tau = self.ema_schedule(self.step, self.total_steps)
+                with torch.no_grad():
+                    torch._foreach_lerp_(self._target_enc, self._online_enc, 1.0 - tau)
+            self.step += 1
+            with span("train.metrics"):
+                if self._data_group is not None:
+                    contrastive, probe_loss, probe_acc = global_mean(
+                        torch.stack([contrastive.detach(), probe_loss.detach(), probe_acc.float()]),
+                        self._data_group)
         return {"loss": contrastive.detach(), "probe_loss": probe_loss.detach(),
                 "probe_acc": probe_acc, "lr": lr, "momentum": tau}
 

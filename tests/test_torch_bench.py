@@ -60,7 +60,7 @@ KEYS = {
                   "volume_latency_ms_p50", "volume_latency_ms_p99", *CARD],
 }
 STORE_KEYS = ["loader_gbytes_per_sec", "num_decode_threads", "precrop", "h2d_bytes_per_batch", "reader",
-              "decode_ms_per_batch", "decode_batches_timed"]
+              "decode_ms_per_batch", "decode_batches_timed", "wait_ms_per_batch", "wait_batches_timed"]
 EXPORTED_KEYS = ["exported_images_per_sec_per_chip", "exported_batch", "exported_latency_ms_p50",
                  "exported_latency_ms_p99"]
 METRICS = {"byol": "aug_train_images_per_sec_per_chip", "seg": "seg_train_images_per_sec_per_chip",
