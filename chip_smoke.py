@@ -18,6 +18,23 @@ exits non-zero and prints no result:
    3.35 TB/s (``bound_needed_us``, the one that counts), the same with the
    whole images (``bound_whole_us``), and the f32 operations over 67
    TFLOP/s; ``share_of_bound`` is the bound over the kernel's time.
+3a. bn_kernels: global BatchNorm's four hand-written kernels
+   (``csrc/global_batchnorm.cu``: statistics, normalize, backward reduce,
+   backward elementwise) at ``byol_r18.ddp4``'s stem (4096 × 64 × 56²) and
+   layer-4 (4096 × 512 × 4²) shapes and its projector's 4096 × 4096, bf16
+   channels-last: each against its plain version (sums within 1e-5 of
+   Σ|v|, the normalized output and dx from the same sums within 1 bf16
+   ulp), then timed cold by CUDA events beside its byte bound at 3.35 TB/s
+   (each input byte read once, each output byte written once), the plain
+   version's time and torch's ``batch_norm_stats`` / ``batch_norm_elemt`` /
+   ``batch_norm_backward_reduce`` / ``batch_norm_backward_elemt`` as
+   ``library_ms`` (the port never calls these). The phases after it count
+   the kernels' launches on every path: none in this process (one card,
+   serving, parity, bench), and in each rank of the data-parallel and
+   depth-sharded phases 3 for each BatchNorm forward and 3 for each
+   backward on the global path, counted at the module boundary, with no
+   BatchNorm left on local statistics (``dist_byol``: 195 a ResNet-18 BYOL
+   step).
 3b. native_store: builds the port's native store reader
    (``medical_image_segmentation_tpu_torch/csrc/mis_loader.cpp`` with its
    own JPEG and PNG decoders and the DICOM codecs) with ``g++`` alone, on
@@ -302,6 +319,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "medical_image_segmentation_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/two_view_augment.cu"
 REPLACES = "medical_image_segmentation_tpu/ops/pallas_augment.py:210"
+BN_KERNEL_SOURCE = f"{PKG}/csrc/global_batchnorm.cu"
 
 
 class SmokeFailure(Exception):
@@ -509,6 +527,201 @@ def run_kernel_checks(torch, fa, dm_mod):
                           bound_by=bounds["bound_by"], library_ms=None, share_of_bound=share)
         phase("kernel", **fields)
     return dict(max_abs_err=max_err, **record)
+
+
+# global BatchNorm at byol_r18.ddp4's shapes: a rank's 4096 views (both views of 2048 images)
+BN_CASES = (("stem", (4096, 64, 56, 56)), ("layer4", (4096, 512, 4, 4)), ("head", (4096, 4096)))
+BN_DEVICE = "cuda"
+BN_STEP_KERNELS = 195  # byol_r18: 43 BatchNorm forwards (21 target, 22 online) and 22 backwards, 3 kernels each
+
+
+def bn_kernel_bytes(shape, elem: int) -> dict:
+    """Bytes each of global BatchNorm's passes needs on an activation of
+    ``shape``: each input byte read once, each output byte written once
+    (activation-sized tensors; per-channel vectors at 4 bytes)."""
+    c = shape[1]
+    a = math.prod(shape) * elem
+    return {"stats": a + 4 * (2 * c + 1), "normalize": 2 * a + 4 * (2 * c + 1 + 4 * c),
+            "backward_reduce": 2 * a + 4 * 6 * c, "backward_elemt": 3 * a + 4 * (6 * c + 1)}
+
+
+def bn_inputs(torch, shape, seed: int):
+    gen = torch.Generator(device=BN_DEVICE).manual_seed(seed)
+    view = (1, shape[1]) + (1,) * (len(shape) - 2)
+    x = (torch.randn(shape, generator=gen, device=BN_DEVICE) * (0.5 + torch.rand(view, generator=gen, device=BN_DEVICE))
+         + torch.randn(view, generator=gen, device=BN_DEVICE))
+    fmt = torch.channels_last if len(shape) == 4 else torch.contiguous_format
+    return x.to(torch.bfloat16).contiguous(memory_format=fmt)
+
+
+def check_bn_case(torch, gbn, name, x, dy, w, b):
+    """The four kernels against their plain versions on one activation;
+    returns the kernels' outputs for the timing."""
+    dims = [0, *range(2, x.ndim)]
+    stats = gbn.batch_stats(x)
+    want = gbn.stats_reference(x)
+    xf = x.float()
+    scale = torch.cat([xf.abs().sum(dims), xf.square().sum(dims)])
+    stats_err = float(((stats[:-1] - want[:-1]).abs() / scale).max())
+    check(stats_err <= 1e-5 and float(stats[-1]) == x.numel() // x.shape[1],
+          f"bn_kernels {name}: statistics differ from the plain version by {stats_err} of sum |v|")
+    check(torch.equal(gbn.batch_stats(x), stats), f"bn_kernels {name}: two statistics calls differ")
+    y, mean, invstd = gbn.normalize(x, w, b, stats, 1e-5, 0.9)
+    y_ulp = bf16_ulps(y, gbn.normalize_reference(x, w, b, mean, invstd))
+    check(y_ulp <= 1, f"bn_kernels {name}: normalize differs from the plain version by {y_ulp} bf16 ulp")
+    sums, _, _ = gbn.backward_reduce(x, dy, mean, invstd)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    xhat = (xf - mean.view(shape)) * invstd.view(shape)
+    del xf
+    scale = torch.cat([dy.float().abs().sum(dims), (dy.float() * xhat).abs().sum(dims)])
+    del xhat
+    sums_err = float(((sums - gbn.backward_reduce_reference(x, dy, mean, invstd)).abs() / scale).max())
+    check(sums_err <= 1e-5, f"bn_kernels {name}: backward sums differ by {sums_err} of sum |v|")
+    n = stats[-1:]
+    dx = gbn.backward_elemt(x, dy, w, mean, invstd, sums, n)
+    dx_ulp = bf16_ulps(dx, gbn.backward_elemt_reference(x, dy, w, mean, invstd, sums, n))
+    check(dx_ulp <= 1, f"bn_kernels {name}: dx differs from the plain version by {dx_ulp} bf16 ulp")
+    torch.cuda.synchronize()
+    return dict(stats_err=stats_err, y_ulp=y_ulp, sums_err=sums_err, dx_ulp=dx_ulp), (stats, mean, invstd, sums, n)
+
+
+def bn_library_calls(torch, x, dy, w, b, mean, invstd):
+    """torch's SyncBatchNorm primitives for the same four passes: the
+    yardstick, never the port's path."""
+    count = torch.tensor([x.numel() // x.shape[1]], dtype=torch.int32, device=x.device)
+    sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(dy, x, mean, invstd, w, True, True, True)
+    return {"stats": lambda: torch.batch_norm_stats(x, 1e-5),
+            "normalize": lambda: torch.batch_norm_elemt(x, w, b, mean, invstd, 1e-5),
+            "backward_reduce": lambda: torch.batch_norm_backward_reduce(dy, x, mean, invstd, w, True, True, True),
+            "backward_elemt": lambda: torch.batch_norm_backward_elemt(dy, x, mean, invstd, w, sum_dy, sum_dy_xmu,
+                                                                      count)}
+
+
+class BatchNormCalls:
+    """``BatchNorm``'s calls in training in this process, counted at the
+    module boundary: ``forwards`` and ``backwards`` on the global path (a
+    group set; a backward counted when the gradient reaches the output) and
+    ``local`` ones. Global BatchNorm launches 3 kernels for each global
+    forward and 3 for each backward (``ops/global_batchnorm.py``), so
+    ``take`` also reads the wrapper's ``launches``."""
+
+    def __init__(self, torch):
+        from medical_image_segmentation_tpu_torch.models.batchnorm import BatchNorm
+        from medical_image_segmentation_tpu_torch.ops import global_batchnorm
+
+        self.gbn = global_batchnorm
+        self.forwards = self.backwards = self.local = 0
+        self.mark = self.now()
+
+        def on_grad(_):
+            self.backwards += 1
+
+        def hook(m, args, out):
+            if not (isinstance(m, BatchNorm) and m.training):
+                return
+            if m.group is None:
+                self.local += 1
+                return
+            self.forwards += 1
+            if out.requires_grad:
+                out.register_hook(on_grad)
+
+        self.handle = torch.nn.modules.module.register_module_forward_hook(hook)
+
+    def now(self) -> dict:
+        return {"launches": self.gbn.launches, "forwards": self.forwards, "backwards": self.backwards,
+                "local": self.local}
+
+    def take(self) -> dict:
+        """The counts since the last ``take``."""
+        now = self.now()
+        out = {k: now[k] - self.mark[k] for k in now}
+        self.mark = now
+        return out
+
+
+# global BatchNorm's kernel launches by rank, per phase of the data-parallel paths
+BN_RANK_LAUNCHES = {}
+
+
+def check_global_bn(name: str, counts: dict, global_path: bool = True) -> None:
+    """A rank's global BatchNorm counts (``BatchNormCalls.take``): 3 kernels
+    for each global forward and backward; on a ``global_path`` (more than
+    one rank in BatchNorm's group) no call kept local statistics, else none
+    took the global path."""
+    derived = 3 * (counts["forwards"] + counts["backwards"])
+    check(counts["launches"] == derived,
+          f"{name}: global BatchNorm launched {counts['launches']} kernels, not 3 × ({counts['forwards']} "
+          f"forwards + {counts['backwards']} backwards) = {derived}")
+    if global_path:
+        check(counts["local"] == 0, f"{name}: {counts['local']} BatchNorm calls kept their local statistics")
+    else:
+        check(counts["forwards"] == 0, f"{name}: {counts['forwards']} BatchNorm calls took the global path")
+    BN_RANK_LAUNCHES.setdefault(name.split(" rank ")[0], []).append(counts["launches"])
+
+
+def take_bn_launches(paths: dict, path: str) -> None:
+    """Global BatchNorm's kernel launches in this process since the last
+    take, added to ``paths[path]``: none of this process's paths has a
+    group of more than one rank."""
+    from medical_image_segmentation_tpu_torch.ops import global_batchnorm as gbn
+
+    paths[path] = paths.get(path, 0) + gbn.launches
+    gbn.launches = 0
+
+
+def run_bn_kernels(torch, card: str) -> dict:
+    """Global BatchNorm's kernels against their plain versions, timed beside
+    their bounds, the plain versions and torch's primitives at the BYOL
+    cell's shapes. Returns the kernels-line fields of ``global_batchnorm``;
+    each path's launches are counted where it runs (``BatchNormCalls``,
+    ``take_bn_launches``)."""
+    from medical_image_segmentation_tpu_torch.ops import _kernels
+    from medical_image_segmentation_tpu_torch.ops import global_batchnorm as gbn
+
+    t0 = time.time()
+    so = _kernels.build_kernel("global_batchnorm")
+    with open(so[:-3] + ".log") as f:
+        ptxas = " | ".join(ln.strip() for ln in f if "registers" in ln or "spill" in ln or "stack" in ln)
+    phase("build", kernel="global_batchnorm", seconds=round(time.time() - t0, 2), ptxas=ptxas or "(cached)")
+    record = {}
+    for name, shape in BN_CASES:
+        x, dy = bn_inputs(torch, shape, 0), bn_inputs(torch, shape, 1)
+        gen = torch.Generator(device=BN_DEVICE).manual_seed(2)
+        w = torch.rand(shape[1], generator=gen, device=BN_DEVICE) + 0.5
+        b = torch.randn(shape[1], generator=gen, device=BN_DEVICE)
+        errs, (stats, mean, invstd, sums, n) = check_bn_case(torch, gbn, name, x, dy, w, b)
+        kernels = {"stats": lambda: gbn.batch_stats(x),
+                   "normalize": lambda: gbn.normalize(x, w, b, stats, 1e-5, 0.9),
+                   "backward_reduce": lambda: gbn.backward_reduce(x, dy, mean, invstd),
+                   "backward_elemt": lambda: gbn.backward_elemt(x, dy, w, mean, invstd, sums, n)}
+        plain = {"stats": lambda: gbn.stats_reference(x),
+                 "normalize": lambda: gbn.normalize_reference(x, w, b, mean, invstd),
+                 "backward_reduce": lambda: gbn.backward_reduce_reference(x, dy, mean, invstd),
+                 "backward_elemt": lambda: gbn.backward_elemt_reference(x, dy, w, mean, invstd, sums, n)}
+        try:
+            library = bn_library_calls(torch, x, dy, w, b, mean, invstd)
+        except RuntimeError as e:  # a yardstick that does not run here is reported, not fatal
+            library = f"refused: {str(e).splitlines()[0][:80]}"
+        need = bn_kernel_bytes(shape, x.element_size())
+        fields = dict(case=name, shape=shape, **errs)
+        for part in kernels:  # the kernels first, before the plain versions fill the allocator's cache
+            ms = cold_ms(kernels[part], 10)
+            bound_ms = need[part] / HBM_BYTES_PER_S * 1e3
+            fields.update({f"{part}_ms": ms, f"{part}_bound_ms": bound_ms, f"{part}_share": bound_ms / ms,
+                           f"{part}_bytes": need[part]})
+        for part in kernels:
+            try:
+                fields[f"{part}_library_ms"] = library if isinstance(library, str) else cold_ms(library[part], 10)
+            except RuntimeError as e:
+                fields[f"{part}_library_ms"] = f"refused: {str(e).splitlines()[0][:80]}"
+            fields[f"{part}_plain_ms"] = cold_ms(plain[part], 3)
+        phase("bn_kernels", **fields, card=repr(card))
+        record[name] = {k: v for k, v in fields.items() if k.endswith(("_ms", "_share", "_bytes"))}
+        del x, dy, stats, mean, invstd, sums, n, kernels, plain, library
+        torch.cuda.empty_cache()
+    gbn.launches = 0  # the paths count from here
+    return record
 
 
 def run_ab(torch, fa, dm_mod, old_source: str, card: str) -> None:
@@ -2695,10 +2908,12 @@ def _dist_rank(rank: int, port: int, out_path: str, config: dict, space: int = 1
         out = {"backend": proc.backend, "device": str(proc.device), "sharing": proc.ranks_per_device}
         from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
 
+        calls = BatchNormCalls(torch)
         for case, mesh in meshes.items():
             t0 = time.time()
             out[case] = dist_case(torch, case, mesh, proc.device)
             out[case]["seconds"] = time.time() - t0
+            out[case]["bn"] = calls.take()
         out["launches"] = fa.fused_two_view_augment.launches
         torch.save(("ok", out), out_path)
     except BaseException:
@@ -2797,6 +3012,13 @@ def hold_dist_cases(torch, name: str, ranks: list, refs: dict, cases) -> dict:
         one, spread = refs["byol" if case == "tp" else case]
         fields = dict(ranks=DIST_RANKS, rank_seconds=round(ranks[0][case]["seconds"], 2),
                       losses=ranks[0][case]["losses"], one_process_losses=one["losses"])
+        for r, rank in enumerate(ranks):  # tp's data group is one rank: its BatchNorm stays local
+            check_global_bn(f"{name}_{case} rank {r}", rank[case]["bn"], global_path=case != "tp")
+        if case == "byol":
+            want = len(ranks[0][case]["losses"]) * BN_STEP_KERNELS
+            check(ranks[0][case]["bn"]["launches"] == want,
+                  f"{name}_byol: {ranks[0][case]['bn']['launches']} global BatchNorm launches, not {want}")
+        fields["bn_launches"] = [rank[case]["bn"]["launches"] for rank in ranks]
         loss_rel = abs(ranks[0][case]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
         check(loss_rel <= 1e-4, f"{name} {case}: step-1 loss {ranks[0][case]['losses'][0]} vs {one['losses'][0]}")
         fields["loss_rel"] = loss_rel
@@ -2831,12 +3053,14 @@ from medical_image_segmentation_tpu_torch.train import train_ssl
 
 try:
     fa.fused_two_view_augment.launches = 0
+    calls = cs.BatchNormCalls(torch)
     t0 = time.time()
     result = train_ssl.run(sys.argv[3:])
     if result.task.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.time() - t0
     launches = fa.fused_two_view_augment.launches
+    bn = calls.take()
     digest = hashlib.sha256()
     state = result.task.state_dict()
     for side in ("online", "target"):
@@ -2865,7 +3089,8 @@ try:
     bounds = cs.kernel_bounds(torch, fa, params, imgs, cfg1.out_size, torch.bfloat16)
     steady = result.epochs[1:] or result.epochs
     ms_step = 1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady)
-    out = {"ok": True, "rank": rank, "launches": launches, "steps": result.task.step, "digest": digest.hexdigest(),
+    out = {"ok": True, "rank": rank, "launches": launches, "bn": bn, "steps": result.task.step,
+           "digest": digest.hexdigest(),
            "used_kernel": result.used_kernel, "losses": [e["loss"] for e in result.epochs], "wall_s": wall,
            "ms_per_step": ms_step, "hbm": result.hbm, "kernel_batch": b, "kernel_max_bf16_ulp": ulps,
            "kernel_max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -2927,6 +3152,8 @@ def run_dist_train(torch, fa, workdir: str, card: str) -> list:
         check(rec["steps"] == steps, f"rank {rec['rank']} ran {rec['steps']} steps")
         check(rec["launches"] == steps + 1, f"rank {rec['rank']} launched the kernel {rec['launches']} times for "
                                             f"{steps} steps and one guard probe")
+        check_global_bn(f"dist_train rank {rec['rank']}", rec["bn"])
+        check(rec["bn"]["forwards"] > 0, f"dist_train rank {rec['rank']}: no BatchNorm took the global path")
         check(rec["kernel_max_bf16_ulp"] <= 1, f"rank {rec['rank']}: kernel and plain differ by "
                                                f"{rec['kernel_max_bf16_ulp']} bf16 ulp")
         check(all(math.isfinite(x) for x in rec["losses"]), f"rank {rec['rank']}: losses {rec['losses']}")
@@ -2935,6 +3162,7 @@ def run_dist_train(torch, fa, workdir: str, card: str) -> list:
           f"checkpoints written: {os.listdir(os.path.join(workdir, 'dist_ssl'))}")
     r0 = recs[0]
     phase("dist_train", ranks=DIST_RANKS, steps=steps, launches=[r["launches"] for r in recs],
+          bn_launches=[r["bn"]["launches"] for r in recs],
           ms_per_step=[r["ms_per_step"] for r in recs], img_per_s=SSL_BATCH * 1000.0 / r0["ms_per_step"],
           losses=r0["losses"], wall_s=[round(r["wall_s"], 2) for r in recs], hbm=r0["hbm"],
           kernel_batch=r0["kernel_batch"], kernel_ms=[r["kernel_ms"] for r in recs],
@@ -3088,8 +3316,10 @@ import torch
 from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
 from medical_image_segmentation_tpu_torch.parallel.mesh import shutdown_distributed
 from medical_image_segmentation_tpu_torch.train import train_segmentation3d
+import chip_smoke as cs
 
 try:
+    calls = cs.BatchNormCalls(torch)
     t0 = time.time()
     result = train_segmentation3d.run(sys.argv[3:])
     if result.task.device.type == "cuda":
@@ -3101,7 +3331,7 @@ try:
         digest.update(v.detach().cpu().contiguous().numpy().tobytes())
     steady = result.epochs[1:] or result.epochs
     out = {"ok": True, "rank": int(os.environ["RANK"]), "launches": fa.fused_two_view_augment.launches,
-           "steps": result.task.step, "losses": [float(x) for x in result.losses], "digest": digest.hexdigest(),
+           "bn": calls.take(), "steps": result.task.step, "losses": [float(x) for x in result.losses], "digest": digest.hexdigest(),
            "ms_per_step": 1000.0 * sum(e["seconds"] for e in steady) / sum(e["steps"] for e in steady),
            "wall_s": wall, "val": result.val, "test": result.test, "checkpoint": result.checkpoint,
            "hbm": result.hbm}
@@ -3159,6 +3389,7 @@ def run_space_train(torch, fa, root: str, workdir: str, steps: dict, card: str) 
               all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in rec["losses"]),
               f"space rank {r}: {rec['steps']} steps, losses {rec['losses']}")
         check(rec["launches"] == 0, f"space rank {r} launched two_view_augment {rec['launches']} times")
+        check_global_bn(f"space_train rank {r}", rec["bn"])
         recs.append(rec)
     check(len({rec["digest"] for rec in recs}) == 1 and recs[0]["losses"] == recs[1]["losses"],
           "the space ranks' parameters or losses differ")
@@ -3190,7 +3421,7 @@ def run_space_train(torch, fa, root: str, workdir: str, steps: dict, card: str) 
           resume_s=round(resume_s, 2),
           group_steps={case: {k: v for k, v in f.items() if k.endswith(("_rel", "_spread"))}
                        for case, f in steps["cases"].items()},
-          launches=[r["launches"] for r in recs] + [launches],
+          launches=[r["launches"] for r in recs] + [launches], bn_launches=[r["bn"]["launches"] for r in recs],
           note="two ranks share one card and all-reduce through the host (gloo): no measure of multi-card scaling",
           card=repr(card))
     return launches
@@ -3413,6 +3644,7 @@ runs = json.loads(sys.argv[4])
 sys.path.insert(0, root)
 import torch
 import bench_torch
+import chip_smoke as cs
 from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
 from medical_image_segmentation_tpu_torch.parallel.mesh import initialize_distributed, shutdown_distributed
 
@@ -3421,13 +3653,14 @@ try:
     torch.backends.cudnn.allow_tf32 = True
     proc = initialize_distributed(device)
     out.update(backend=proc.backend, device=str(proc.device), sharing=proc.ranks_per_device)
+    calls = cs.BatchNormCalls(torch)
     for name, argv in runs.items():
         fa.fused_two_view_augment.launches = 0
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = bench_torch.main(argv)
         out["runs"][name] = {"rc": rc, "stdout": buf.getvalue().strip().splitlines(),
-                             "launches": fa.fused_two_view_augment.launches}
+                             "launches": fa.fused_two_view_augment.launches, "bn": calls.take()}
     out["ok"] = True
 except BaseException:
     out["error"] = traceback.format_exc()
@@ -3537,6 +3770,8 @@ def bench_gloo_runs(workdir: str) -> dict:
         launches = [run["launches"] for run in runs_r]
         check(launches == [want] * BENCH_RANKS,
               f"bench_ranks gloo {name}: two_view_augment launched {launches} times by rank, not {want} each")
+        for r, run in enumerate(runs_r):
+            check_global_bn(f"bench_ranks_gloo_{name} rank {r}", run["bn"])
         out[name] = {"line": line, "launches": launches}
     return out
 
@@ -3634,12 +3869,15 @@ def main(argv=None) -> int:
         if ab_old_source:
             run_ab(torch, fa, dm_mod, ab_old_source, card)
             return finish(torch, card, None)
+        bn_record = run_bn_kernels(torch, card)
+        bn_paths = {}  # global BatchNorm's launches in this process by path: one card, parity, serving, bench
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         native_build.join()
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             run_native_store(workdir, card)
         run_parity(torch)
         run_seg_parity(torch)
+        take_bn_launches(bn_paths, "parity")
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             task, launches, ssl_ckpt, raw_ms = run_trainer(torch, fa, workdir, card)
             run_step_timing(torch, fa, task, card)
@@ -3650,12 +3888,14 @@ def main(argv=None) -> int:
             space_launches = space_steps["launches"]
             seg_ckpt = run_seg_train(torch, workdir, ssl_ckpt, card)
             run_predict(torch, workdir, seg_ckpt, card)
+            take_bn_launches(bn_paths, "one_card")
             # the serving path: no TPU kernel lies on it, so none is launched
             before = fa.fused_two_view_augment.launches
             run_export(torch, workdir, seg_ckpt, card)
             run_fused2d(torch, workdir, seg_ckpt, card)
             serving_launches = fa.fused_two_view_augment.launches - before
             multicard_launches = run_multicard_2d(torch, fa, workdir, seg_ckpt, card)
+            take_bn_launches(bn_paths, "serving")
             run_seg_step(torch, card)
             run_precrop(torch, fa, workdir, card)
             run_resume(torch, fa, workdir, card)
@@ -3668,7 +3908,9 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             raw = run_ingest(torch, fa, workdir, card)
             ingest_launches = fa.fused_two_view_augment.launches
+            take_bn_launches(bn_paths, "one_card")
             parity_launches, _ = run_parity_harness(torch, fa, workdir, raw, card)
+            take_bn_launches(bn_paths, "parity")
         # the volumetric path: no TPU kernel lies on it, so none is launched
         fa.fused_two_view_augment.launches = 0
         run_vol_parity(torch)
@@ -3681,14 +3923,17 @@ def main(argv=None) -> int:
             run_resume3d(torch, root, workdir, card)
             run_predict3d(torch, root, workdir, seg3d_ckpt, card)
             vol_launches = fa.fused_two_view_augment.launches
+            take_bn_launches(bn_paths, "one_card")
             window_art = run_export3d(torch, root, workdir, seg3d_ckpt, card)
             run_fused3d(torch, root, workdir, seg3d_ckpt, window_art, card)
             serving_launches += fa.fused_two_view_augment.launches - vol_launches
             fa.fused_two_view_augment.launches = vol_launches
             multicard_launches += run_multicard_3d(torch, fa, root, workdir, seg3d_ckpt, card)
+            take_bn_launches(bn_paths, "serving")
             space_launches += run_space_train(torch, fa, root, workdir, space_steps, card)
             fa.fused_two_view_augment.launches = vol_launches
         run_seg3d_step(torch, card)
+        take_bn_launches(bn_paths, "one_card")
         vol_launches = fa.fused_two_view_augment.launches
         check(vol_launches == 0, f"the volumetric path launched two_view_augment {vol_launches} times")
         check(serving_launches == 0, f"the serving path launched two_view_augment {serving_launches} times")
@@ -3697,6 +3942,8 @@ def main(argv=None) -> int:
         bench_launches, bench_values = run_bench_programs(torch, fa, card)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             bench_ranks_launches = run_bench_ranks(torch, fa, workdir, bench_values, card)
+        take_bn_launches(bn_paths, "bench")
+        check(not any(bn_paths.values()), f"global BatchNorm launched on a one-card path: {bn_paths}")
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches,
                                      "launches_volumetric_path": vol_launches,
@@ -3708,7 +3955,11 @@ def main(argv=None) -> int:
                                      "launches_parity_path": parity_launches,
                                      "launches_bench_path": bench_launches,
                                      "launches_bench_ranks_path": bench_ranks_launches, **dist_record,
-                                     **kernel_record}])
+                                     **kernel_record},
+                                    {"name": "global_batchnorm", "route": "cuda", "source": BN_KERNEL_SOURCE,
+                                     "replaces": "none: flax's BatchNorm is left to XLA",
+                                     **{f"launches_{path}_path": n for path, n in bn_paths.items()},
+                                     "launches_by_rank": BN_RANK_LAUNCHES, **bn_record}])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -27,10 +27,12 @@ and takes flax's variance E[x²] − E[x]²; the backward all-reduces
 (Σdy, Σdy·x̂) for the input's gradient, while the scale's and bias's
 gradients stay this rank's sums (the trainer averages every gradient over
 the group afterwards). The running statistics take the global mean and
-biased variance. With no group (one card) the cuDNN call above runs as
-before. Under a profiler the global path's three parts are spans
-(``bn.global_stats``, ``bn.global_normalize``, ``bn.global_backward``, the
-last on autograd's thread); the eval and one-card paths have none.
+biased variance. The passes are ``ops/global_batchnorm.py``'s: the
+hand-written kernels on the card, their plain float32 versions on the CPU.
+With no group (one card) the cuDNN call above runs as before. Under a
+profiler the global path's three parts are spans (``bn.global_stats``,
+``bn.global_normalize``, ``bn.global_backward``, the last on autograd's
+thread); the eval and one-card paths have none.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from medical_image_segmentation_tpu_torch.core.profiling import span
+from medical_image_segmentation_tpu_torch.ops import global_batchnorm
 from medical_image_segmentation_tpu_torch.parallel.mesh import all_reduce_, group_size
 
 
@@ -82,50 +85,34 @@ class BatchNorm(nn.Module):
         return y
 
     def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[1]
-        dims = [0, *range(2, x.ndim)]
         with span("bn.global_stats"), torch.no_grad():
-            xf = x.float()
-            stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
-                               torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)])
-            all_reduce_(stats, self.group)
-            n = stats[-1]
-            mean = stats[:c] / n
-            var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
-            if not self.recomputing:
-                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
-            invstd = torch.rsqrt(var + self.eps)
-        return _GlobalNormalize.apply(x, self.weight, self.bias, mean, invstd, n, self.group)
+            stats = all_reduce_(global_batchnorm.batch_stats(x), self.group)
+        return _GlobalNormalize.apply(x, self.weight, self.bias, stats, self)
 
 
 class _GlobalNormalize(torch.autograd.Function):
-    """``(x − mean)·invstd·weight + bias`` with global statistics; the
-    backward all-reduces the two sums the input's gradient needs."""
+    """``(x − mean)·invstd·weight + bias`` with the statistics of the
+    all-reduced (Σx, Σx², n), which also move ``bn``'s running statistics
+    unless it is recomputing; the backward all-reduces the two sums the
+    input's gradient needs."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, mean, invstd, n, group):
+    def forward(ctx, x, weight, bias, stats, bn):
         with span("bn.global_normalize"):
-            shape = (1, -1) + (1,) * (x.ndim - 2)
-            xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
-            ctx.save_for_backward(x, weight, mean, invstd, n)
-            ctx.group = group
-            return (xhat * weight.view(shape) + bias.view(shape)).to(x.dtype)
+            running = None if bn.recomputing else (bn.running_mean, bn.running_var)
+            y, mean, invstd = global_batchnorm.normalize(x, weight, bias, stats, bn.eps, bn.momentum, running)
+            ctx.save_for_backward(x, weight, mean, invstd, stats[-1:])
+            ctx.group = bn.group
+            return y
 
     @staticmethod
     def backward(ctx, dy):
         with span("bn.global_backward"):
             x, weight, mean, invstd, n = ctx.saved_tensors
-            shape = (1, -1) + (1,) * (x.ndim - 2)
-            dims = [0, *range(2, x.ndim)]
-            c = x.shape[1]
-            dyf = dy.float()
-            xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
-            local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
-            grad_bias, grad_weight = local[:c].clone(), local[c:].clone()
-            sums = all_reduce_(local, ctx.group)
-            dx = (weight * invstd).view(shape) * (dyf - (sums[:c] / n).view(shape) - xhat * (sums[c:] / n).view(shape))
-            return dx.to(x.dtype), grad_weight, grad_bias, None, None, None, None
+            sums, grad_weight, grad_bias = global_batchnorm.backward_reduce(x, dy, mean, invstd)
+            all_reduce_(sums, ctx.group)
+            dx = global_batchnorm.backward_elemt(x, dy, weight, mean, invstd, sums, n)
+            return dx, grad_weight, grad_bias, None, None
 
 
 def set_group(modules: Iterable[torch.nn.Module], group) -> None:

@@ -23,7 +23,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures per source, function -> (restype, argtypes). Every pointer and
 # the stream are c_void_p, or ctypes would pass them as 32-bit ints.
 SIGNATURES = {
@@ -33,6 +33,20 @@ SIGNATURES = {
         "mis_two_view_augment": (_I32, [_PTR] * 4 + [_I32] * 8 + [_F32] * 7 + [_PTR]),
         # H, W, C, OH, OW, in_u16 -> band, n_bands, rows_cap, smem bytes
         "mis_two_view_augment_plan": (_I32, [_I32] * 6 + [_PTR] * 4),
+    },
+    "global_batchnorm": {
+        # M, C, bf16 -> floats of scratch the two-pass sums need
+        "mis_gbn_work_floats": (_I32, [_I64, _I32, _I32, _PTR]),
+        # x, M, C, bf16, work, work_floats, out, stream
+        "mis_gbn_stats": (_I32, [_PTR, _I64, _I32, _I32, _PTR, _I64, _PTR, _PTR]),
+        # x, sums, weight, bias, y, mean, invstd, running_mean, running_var,
+        # keep, take, eps, M, C, bf16, stream
+        "mis_gbn_normalize": (_I32, [_PTR] * 9 + [_F32] * 3 + [_I64, _I32, _I32, _PTR]),
+        # x, dy, mean, invstd, M, C, bf16, work, work_floats, out,
+        # grad_weight, grad_bias, stream
+        "mis_gbn_backward_reduce": (_I32, [_PTR] * 4 + [_I64, _I32, _I32, _PTR, _I64] + [_PTR] * 4),
+        # x, dy, weight, mean, invstd, sums, count, dx, M, C, bf16, stream
+        "mis_gbn_backward_elemt": (_I32, [_PTR] * 8 + [_I64, _I32, _I32, _PTR]),
     },
 }
 

@@ -7,7 +7,10 @@ and without JAX: ``python -m pytest --noconftest tests/test_torch_kernels.py -q`
 need the card are marked ``gpu`` and skip without one.
 """
 
+import ctypes
 import dataclasses
+import os
+import re
 
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 from medical_image_segmentation_tpu_torch.ops import _kernels
 from medical_image_segmentation_tpu_torch.ops import augment as taug
 from medical_image_segmentation_tpu_torch.ops import fused_augment as fa
+from medical_image_segmentation_tpu_torch.ops import global_batchnorm as gbn
 
 torch.set_num_threads(2)
 
@@ -303,3 +307,263 @@ def test_fused_window_predictor_replays_its_graph_equal_to_the_loop(cuda):
         assert got.shape == want.shape
         assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
     assert fused.replays == 2 and fused.capture_seconds > 0
+
+
+def _c_signatures(path: str) -> dict:
+    """The ``extern "C"`` functions of a CUDA source as ctypes signatures:
+    name -> (restype, argtypes), every pointer a c_void_p."""
+    with open(path) as f:
+        text = f.read()
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    out = {}
+    for ret, name, params in re.findall(r'extern "C" (\w+) (\w+)\(([^)]*)\)', text):
+        args = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            args.append(ctypes.c_void_p if "*" in p else kinds[p.rsplit(" ", 1)[0].removeprefix("const ")])
+        out[name] = (kinds[ret], args)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_kernels.SIGNATURES))
+def test_signatures_match_the_sources_extern_c_declarations(name):
+    assert _c_signatures(os.path.join(_kernels.CSRC_DIR, f"{name}.cu")) == {
+        fn: (res, list(args)) for fn, (res, args) in _kernels.SIGNATURES[name].items()}
+
+
+# global BatchNorm's (N, C, ...) inputs as the data-parallel trainers hand them over
+_BN_LAYOUTS = {"2d": ((1037,), torch.contiguous_format), "4d": ((3, 7, 11), torch.channels_last),
+               "5d": ((3, 3, 5, 7), torch.channels_last_3d)}
+
+
+def _bn_input(layout: str, c: int, dtype, device="cpu", seed=0):
+    """A seeded (N, C, ...) activation in ``layout`` with a mean and scale
+    of its own per channel, as a convolution's output has."""
+    dims, fmt = _BN_LAYOUTS[layout]
+    shape = (dims[0], c, *dims[1:])
+    gen = torch.Generator().manual_seed(seed)
+    view = (1, c) + (1,) * (len(shape) - 2)
+    x = torch.randn(shape, generator=gen) * (0.5 + torch.rand(view, generator=gen)) + torch.randn(view, generator=gen)
+    return x.to(device=device, dtype=dtype).contiguous(memory_format=fmt)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", sorted(_BN_LAYOUTS))
+def test_global_batchnorm_cpu_tensors_take_the_plain_version(layout, dtype):
+    x, dy = _bn_input(layout, 24, dtype), _bn_input(layout, 24, dtype, seed=1)
+    w, b = torch.rand(24) + 0.5, torch.randn(24)
+    before = gbn.launches
+    stats = gbn.batch_stats(x)
+    assert torch.equal(stats, gbn.stats_reference(x)) and stats[-1] == x.numel() // 24
+    rm, rv = torch.zeros(24), torch.ones(24)
+    y, mean, invstd = gbn.normalize(x, w, b, stats, 1e-5, 0.9, (rm, rv))
+    want_mean, want_var, want_invstd = gbn.moments_reference(stats, 1e-5)
+    assert torch.equal(mean, want_mean) and torch.equal(invstd, want_invstd)
+    assert torch.equal(rm, 0.1 * want_mean) and torch.allclose(rv, 0.9 + 0.1 * want_var)
+    assert torch.equal(y, gbn.normalize_reference(x, w, b, mean, invstd)) and y.dtype == dtype
+    sums, grad_w, grad_b = gbn.backward_reduce(x, dy, mean, invstd)
+    assert torch.equal(sums, gbn.backward_reduce_reference(x, dy, mean, invstd))
+    assert torch.equal(grad_b, sums[:24]) and torch.equal(grad_w, sums[24:])
+    dx = gbn.backward_elemt(x, dy, w, mean, invstd, sums, stats[-1:])
+    assert torch.equal(dx, gbn.backward_elemt_reference(x, dy, w, mean, invstd, sums, stats[-1:]))
+    assert gbn.launches == before
+
+
+@pytest.mark.parametrize("shape, fmt, dtype, error", [
+    ((2, 8, 3, 3), torch.contiguous_format, torch.bfloat16, ValueError),  # NCHW
+    ((2, 8, 3, 3, 3), torch.contiguous_format, torch.float32, ValueError),  # NCDHW
+    ((2, 8, 5), torch.contiguous_format, torch.float32, ValueError),  # (N, C, L)
+    ((4, 8), torch.contiguous_format, torch.float16, TypeError),
+    ((4, 8), torch.contiguous_format, torch.float64, TypeError),
+    ((0, 8, 3, 3), torch.channels_last, torch.bfloat16, ValueError),
+])
+def test_global_batchnorm_kernels_refuse_what_they_do_not_take(shape, fmt, dtype, error):
+    x = torch.zeros(shape, dtype=dtype).contiguous(memory_format=fmt)
+    with pytest.raises(error):
+        gbn.kernel_layout(x)
+
+
+def test_global_batchnorm_kernels_take_transposes_only_when_contiguous():
+    assert gbn.kernel_layout(torch.zeros(4, 8)) == torch.contiguous_format
+    with pytest.raises(ValueError, match="contiguous 2-D"):
+        gbn.kernel_layout(torch.zeros(8, 4).t())
+    assert gbn.kernel_layout(torch.zeros(2, 8, 3, 3).contiguous(memory_format=torch.channels_last)) == \
+        torch.channels_last
+
+
+def test_global_batchnorm_counts_launches_and_under_a_profiler_the_counter():
+    from torch.profiler import ProfilerActivity, profile
+
+    from medical_image_segmentation_tpu_torch.core import profiling
+
+    before = gbn.launches
+    profiling.reset_counters()
+    gbn._launched(0, "stats", 2)
+    assert gbn.launches == before + 2 and "bn.global_kernels" not in profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        gbn._launched(0, "normalize", 1)
+        gbn._launched(0, "backward reduce", 2)
+    assert gbn.launches == before + 5 and profiling.counters()["bn.global_kernels"] == 3
+    with pytest.raises(RuntimeError, match="backward elemt launch failed: CUDA error 1"):
+        gbn._launched(1, "backward elemt", 1)
+    assert gbn.launches == before + 5
+    profiling.reset_counters()
+
+
+def test_global_batchnorm_has_no_version_for_other_devices():
+    with pytest.raises(RuntimeError, match="no global BatchNorm implementation"):
+        gbn.batch_stats(torch.zeros(4, 8, device="meta"))
+
+
+def _chip_smoke(monkeypatch):
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("mode, forwards, backwards, local", [
+    ("global", 2, 2, 0), ("global_no_grad", 2, 0, 0), ("local", 0, 0, 2), ("eval", 0, 0, 0)])
+def test_the_smoke_counts_batchnorm_calls_at_the_module_boundary(monkeypatch, mode, forwards, backwards, local):
+    """Global forwards, the backwards that reach them and local calls in
+    training; eval calls are none of these. On the CPU the global path is
+    the plain version, which launches nothing."""
+    from medical_image_segmentation_tpu_torch.models import batchnorm
+
+    smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(batchnorm, "all_reduce_", lambda t, group: t)  # a group of one rank
+    net = torch.nn.Sequential(torch.nn.Linear(4, 8), batchnorm.BatchNorm(8), torch.nn.ReLU(), batchnorm.BatchNorm(8))
+    for m in net:
+        if isinstance(m, batchnorm.BatchNorm) and mode.startswith("global"):
+            m.group = "ranks"
+    net.train(mode != "eval")
+    calls = smoke.BatchNormCalls(torch)
+    try:
+        with torch.set_grad_enabled(mode != "global_no_grad"):
+            y = net(torch.randn(16, 4))
+        if y.requires_grad:
+            y.square().sum().backward()
+        assert calls.take() == {"launches": 0, "forwards": forwards, "backwards": backwards, "local": local}
+        assert calls.take() == {"launches": 0, "forwards": 0, "backwards": 0, "local": 0}
+    finally:
+        calls.handle.remove()
+
+
+@pytest.mark.parametrize("counts, global_path, error", [
+    ((12, 2, 2, 0), True, None),
+    ((9, 2, 2, 0), True, r"launched 9 kernels, not 3 × \(2 forwards \+ 2 backwards\) = 12"),
+    ((0, 0, 0, 3), True, "3 BatchNorm calls kept their local statistics"),
+    ((0, 0, 0, 3), False, None),
+    ((6, 1, 1, 0), False, "1 BatchNorm calls took the global path"),
+])
+def test_the_smoke_holds_each_rank_to_three_kernels_a_global_call(monkeypatch, counts, global_path, error):
+    smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(smoke, "BN_RANK_LAUNCHES", {})
+    counts = dict(zip(("launches", "forwards", "backwards", "local"), counts))
+    if error is None:
+        smoke.check_global_bn("dist_seg rank 1", counts, global_path)
+        assert smoke.BN_RANK_LAUNCHES == {"dist_seg": [counts["launches"]]}
+    else:
+        with pytest.raises(smoke.SmokeFailure, match=error):
+            smoke.check_global_bn("dist_seg rank 1", counts, global_path)
+
+
+def _f32_ulps(a, b) -> int:
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i >= 0, i, -(i + 2 ** 31))
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _ulps(a, b) -> int:
+    return _bf16_ulps(a, b) if a.dtype == torch.bfloat16 else _f32_ulps(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [64, 128, 256, 512, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", sorted(_BN_LAYOUTS))
+def test_global_batchnorm_kernels_match_plain_version_on_card(cuda, layout, dtype, c):
+    """Each of the four kernels against its plain version on the same inputs.
+
+    - Sums: float32 sums of the same values in another order. Each of the
+      two differs from the exact sum by at most 2^-24 times its longest
+      chain of additions (under 170 at these sizes) times the sum of the
+      terms' magnitudes: within 1e-5 of Σ|v| per channel.
+    - Moments from the same sums: mean equal; invstd within 2 float32 ulp
+      (CUDA's ``rsqrtf`` is within 2 ulp of the true value).
+    - Normalize and dx from the same mean, invstd and sums: within 1 ulp of
+      the working dtype (each product and sum rounded as the plain version
+      rounds it, once to the dtype at the end).
+    - dx from each side's own sums: the sums' difference moves Σdy/n and
+      Σdy·x̂/n by 1e-5 of mean |dy| and mean |dy·x̂|, so dx by
+      |w·invstd|·(1 + |x̂|)·1e-5·mean |dy|: within 1e-4 of max |dx| beyond
+      one rounding to the dtype.
+    """
+    x, dy = _bn_input(layout, c, dtype, cuda), _bn_input(layout, c, dtype, cuda, seed=1)
+    m = x.numel() // c
+    assert m % 2 == 1  # blocks span a power of two of rows: where one spans more, the last is ragged
+    gen = torch.Generator().manual_seed(2)
+    w, b = (torch.rand(c, generator=gen) + 0.5).to(cuda), torch.randn(c, generator=gen).to(cuda)
+    xf, dims = x.float(), [0, *range(2, x.ndim)]
+
+    before = gbn.launches
+    stats = gbn.batch_stats(x)
+    want = gbn.stats_reference(x)
+    torch.cuda.synchronize()
+    assert gbn.launches == before + 2
+    scale = torch.cat([xf.abs().sum(dims), xf.square().sum(dims)])
+    assert bool(((stats[:-1] - want[:-1]).abs() <= 1e-5 * scale).all()) and stats[-1] == m
+    assert torch.equal(gbn.batch_stats(x), stats)  # the same sums on every call
+
+    rm, rv = torch.randn(c, device=cuda), torch.rand(c, device=cuda) + 0.5
+    rm0, rv0 = rm.clone(), rv.clone()
+    y, mean, invstd = gbn.normalize(x, w, b, stats, 1e-5, 0.9, (rm, rv))
+    want_mean, want_var, want_invstd = gbn.moments_reference(stats, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(mean, want_mean) and _f32_ulps(invstd, want_invstd) <= 2
+    torch.testing.assert_close(rm, 0.9 * rm0 + 0.1 * want_mean, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(rv, 0.9 * rv0 + 0.1 * want_var, rtol=1e-6, atol=1e-7)
+    assert y.dtype == dtype and y.shape == x.shape and y.stride() == x.stride()
+    assert _ulps(y, gbn.normalize_reference(x, w, b, mean, invstd)) <= 1
+
+    sums, grad_w, grad_b = gbn.backward_reduce(x, dy, mean, invstd)
+    want_sums = gbn.backward_reduce_reference(x, dy, mean, invstd)
+    torch.cuda.synchronize()
+    xhat = (xf - mean.view(1, -1, *[1] * (x.ndim - 2))) * invstd.view(1, -1, *[1] * (x.ndim - 2))
+    scale = torch.cat([dy.float().abs().sum(dims), (dy.float() * xhat).abs().sum(dims)])
+    assert bool(((sums - want_sums).abs() <= 1e-5 * scale).all())
+    assert torch.equal(grad_b, sums[:c]) and torch.equal(grad_w, sums[c:])
+
+    n = stats[-1:]
+    dx = gbn.backward_elemt(x, dy, w, mean, invstd, sums, n)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dx.stride() == x.stride()
+    assert _ulps(dx, gbn.backward_elemt_reference(x, dy, w, mean, invstd, sums, n)) <= 1
+    plain = gbn.backward_elemt_reference(x, dy, w, want_mean, want_invstd, want_sums, want[-1:]).float()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    assert bool(((dx.float() - plain).abs() <= ulp * plain.abs() + 1e-4 * plain.abs().max()).all())
+    assert gbn.launches == before + 8
+
+
+@pytest.mark.gpu
+def test_global_batchnorm_wrapper_on_card(cuda):
+    """Another layout of dy is taken (made channels-last); an NCHW
+    activation, a half-precision one and running statistics of another
+    size raise; recomputing (no running statistics) leaves them alone."""
+    x = _bn_input("4d", 64, torch.bfloat16, cuda)
+    dy = _bn_input("4d", 64, torch.bfloat16, cuda, seed=1)
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    stats = gbn.batch_stats(x)
+    y, mean, invstd = gbn.normalize(x, w, b, stats, 1e-5, 0.9)
+    sums, _, _ = gbn.backward_reduce(x, dy.contiguous(), mean, invstd)
+    assert torch.equal(sums, gbn.backward_reduce(x, dy, mean, invstd)[0])
+    with pytest.raises(ValueError, match="channels_last"):
+        gbn.batch_stats(x.contiguous())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        gbn.batch_stats(x.half())
+    with pytest.raises(ValueError, match="running_mean"):
+        gbn.normalize(x, w, b, stats, 1e-5, 0.9, (torch.zeros(32, device=cuda), torch.ones(64, device=cuda)))
+    with pytest.raises(ValueError, match="expected"):
+        gbn.backward_reduce(x, dy.float(), mean, invstd)
