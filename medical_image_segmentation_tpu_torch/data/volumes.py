@@ -6,7 +6,8 @@ the JAX package's element for element:
 - ``pair_scans_and_masks`` (the port's ``data/ingest/slice_decathlon.py``,
   one copy for both): imagesTr/labelsTr matched by basename; a split JSON
   filters them by the filename stem, the uid the 2D split files use;
-- per-volume min-max normalization to 0..1, mask binarized ``!= 0``;
+- per-volume min-max normalization to 0..1, mask binarized ``!= 0``
+  (with ``labels=True`` kept as the integer label map, rounded);
 - NIfTI (X, Y, Z) becomes (D=Z, H=X, W=Y, 1) float32; a 4-D volume takes
   channel 0;
 - ``center_fit`` pads or crops around the centre to a fixed
@@ -71,7 +72,7 @@ class DecathlonVolumeDataset:
     otherwise repeat every epoch); ``raw`` is never cached."""
 
     def __init__(self, images_dir: str, masks_dir: str, target_shape: Tuple[int, int, int] = (64, 64, 64),
-                 split_file: Optional[str] = None, split: str = "train", cache: bool = False):
+                 split_file: Optional[str] = None, split: str = "train", cache: bool = False, labels: bool = False):
         pairs = pair_scans_and_masks(images_dir, masks_dir)
         if split_file:
             with open(split_file) as f:
@@ -81,6 +82,7 @@ class DecathlonVolumeDataset:
             raise ValueError(f"no volume pairs under {images_dir} / {masks_dir} (split={split})")
         self.pairs: List[Tuple[str, str]] = pairs
         self.target_shape = tuple(target_shape)
+        self.labels = labels
         self._cache: Optional[dict] = {} if cache else None
 
     def __len__(self) -> int:
@@ -88,13 +90,15 @@ class DecathlonVolumeDataset:
 
     def raw(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
         """(volume, mask) at native resolution, normalized and binarized
-        but not fitted: for full-resolution sliding-window evaluation."""
+        (or the label map) but not fitted: for full-resolution
+        sliding-window evaluation."""
         img_path, msk_path = self.pairs[i]
         vol = read_volume(img_path)
         seg = np.moveaxis(read_nifti(msk_path).get_fdata(), -1, 0)
         if vol.shape != seg.shape:
             raise ValueError(f"shape mismatch {vol.shape} vs {seg.shape} for {img_path}")
-        return minmax_unit(vol)[..., None], (seg != 0).astype(np.float32)[..., None]
+        msk = np.rint(seg) if self.labels else (seg != 0)
+        return minmax_unit(vol)[..., None], msk.astype(np.float32)[..., None]
 
     def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
         if self._cache is not None and i in self._cache:

@@ -128,9 +128,11 @@ def set_group(modules: Iterable[torch.nn.Module], group) -> None:
 
 @contextlib.contextmanager
 def recomputing(modules: Iterable[torch.nn.Module]) -> Iterator[None]:
-    """Mark every ``BatchNorm`` under ``modules`` as recomputing for the
-    duration: their running statistics stay as they are."""
-    bns = [m for mod in modules for m in mod.modules() if isinstance(m, BatchNorm)]
+    """Mark every module under ``modules`` that has a ``recomputing`` flag
+    (``BatchNorm``; ``models/plain_unet3d.py``'s InstanceNorm) as
+    recomputing for the duration: running statistics and counters stay as
+    they are."""
+    bns = [m for mod in modules for m in mod.modules() if hasattr(m, "recomputing")]
     for m in bns:
         m.recomputing = True
     try:

@@ -93,6 +93,21 @@ def keep_rows(draws, shard: Shard):
     return draws[index * per:(index + 1) * per]
 
 
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(values: Sequence[float], device) -> torch.Tensor:
+    """``values`` as a float32 tensor on ``device``, made once and kept: a
+    tensor built from a host list on the card is a copy that waits for the
+    card's queue to drain, which once a step would hold the host to the
+    card (the segmentation pipelines' mean and std)."""
+    key = (tuple(float(v) for v in values), str(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(key[0], dtype=torch.float32, device=device)
+    return t
+
+
 def _uniform(generator: torch.Generator, n: int, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
     u = torch.rand(n, generator=generator, device=generator.device, dtype=torch.float32)
     return lo + (hi - lo) * u
@@ -389,8 +404,8 @@ def apply_segmentation(
         img = (m + draws["contrast"].view(-1, 1, 1, 1) * (img - m)).clamp(0.0, 1.0)
 
     img = apply_hu_windows(img, hu_windows)
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=img.device).view(1, 1, 1, -1)
-    std_t = torch.tensor(std, dtype=torch.float32, device=img.device).view(1, 1, 1, -1)
+    mean_t = device_constant(mean, img.device).view(1, 1, 1, -1)
+    std_t = device_constant(std, img.device).view(1, 1, 1, -1)
     return ((img - mean_t) / std_t).to(dtype), msk
 
 

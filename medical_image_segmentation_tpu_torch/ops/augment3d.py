@@ -24,6 +24,10 @@ at train the image is gathered whole, since the contrast jitter turns
 around each sample's mean of the whole crop, and cut to the slab right
 after that mean. The slab is then the whole pipeline's output cut to the
 slab, to the bit.
+
+``labels=True`` takes the mask as an integer label map (nnU-Net's
+classes): it is cropped and flipped value for value, not cut at 0.5; the
+gather moves values, whatever they are.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from medical_image_segmentation_tpu_torch.ops.augment import Shard, _uniform, apply_hu_windows, keep_rows
+from medical_image_segmentation_tpu_torch.ops.augment import (
+    Shard, _uniform, apply_hu_windows, device_constant, keep_rows,
+)
 
 Draws = Dict[str, torch.Tensor]
 
@@ -97,8 +103,8 @@ def _jitter(img: torch.Tensor, draws: Draws, depth: slice = slice(None)) -> torc
 
 
 def _normalize(img: torch.Tensor, mean: Sequence[float], std: Sequence[float], dtype) -> torch.Tensor:
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=img.device).view(1, 1, 1, 1, -1)
-    std_t = torch.tensor(std, dtype=torch.float32, device=img.device).view(1, 1, 1, 1, -1)
+    mean_t = device_constant(mean, img.device).view(1, 1, 1, 1, -1)
+    std_t = device_constant(std, img.device).view(1, 1, 1, 1, -1)
     return ((img - mean_t) / std_t).to(dtype)
 
 
@@ -113,15 +119,19 @@ def apply_segmentation_3d(
     dtype=torch.bfloat16,
     hu_windows: Sequence[Tuple[float, float]] = (),
     depth: slice = slice(None),
+    labels: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The paired volume/mask pipeline (``ops/augment3d.py:42-94``) from
     the given draws; ``draws=None`` is the eval pipeline. The mask is
-    cropped, cut at 0.5 and flipped with the image's coins. ``hu_windows``
-    (level, width on the 0..1 scale) become input channels; a single
-    mean/std broadcasts over them. Returns the image in ``dtype`` and the
-    f32 0/1 mask, both cut to the crop depths in ``depth``."""
+    cropped, cut at 0.5 (not with ``labels``) and flipped with the image's
+    coins. ``hu_windows`` (level, width on the 0..1 scale) become input
+    channels; a single mean/std broadcasts over them. Returns the image in
+    ``dtype`` and the f32 0/1 mask (label map), both cut to the crop depths
+    in ``depth``."""
     _check_crop(vols.shape[1:4], out_size)
-    msk = (_crop_flip(masks, out_size, draws, depth).float() > 0.5).float()
+    msk = _crop_flip(masks, out_size, draws, depth).float()
+    if not labels:
+        msk = (msk > 0.5).float()
     if draws is None:
         img = _crop_flip(vols, out_size, None, depth).float() * value_scale
     else:
@@ -133,12 +143,14 @@ def segmentation_augment_3d(generator: Optional[torch.Generator], vols: torch.Te
                             out_size: Tuple[int, int, int] = (64, 64, 64), mean: Sequence[float] = (0.2089,),
                             std: Sequence[float] = (0.2109,), train: bool = True, value_scale: float = 1.0,
                             dtype=torch.bfloat16, hu_windows: Sequence[Tuple[float, float]] = (),
-                            shard: Shard = (0, 1), depth: slice = slice(None)) -> Tuple[torch.Tensor, torch.Tensor]:
+                            shard: Shard = (0, 1), depth: slice = slice(None),
+                            labels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample the draws from ``generator`` when ``train`` (eval needs no
     generator) and apply them: the JAX ``segmentation_augment_3d``."""
     draws = (keep_rows(sample_volume_draws(generator, vols.shape[0] * shard[1], vols.shape[1:4], out_size), shard)
              if train else None)
-    return apply_segmentation_3d(draws, vols, masks, out_size, mean, std, value_scale, dtype, hu_windows, depth)
+    return apply_segmentation_3d(draws, vols, masks, out_size, mean, std, value_scale, dtype, hu_windows, depth,
+                                 labels)
 
 
 def apply_byol_view_3d(draws: Draws, vols: torch.Tensor, out_size: Tuple[int, int, int] = (32, 64, 64),

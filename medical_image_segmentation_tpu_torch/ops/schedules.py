@@ -40,6 +40,16 @@ def linear_warmup_cosine_annealing(
     return schedule
 
 
+def poly(base_lr: float, total_steps: int, exponent: float = 0.9) -> Callable[[int], float]:
+    """nnU-Net's polynomial decay: ``base_lr · (1 − step/total_steps)^exponent``,
+    0 from ``total_steps`` on."""
+
+    def schedule(count: int) -> float:
+        return base_lr * max(1.0 - count / max(total_steps, 1), 0.0) ** exponent
+
+    return schedule
+
+
 def cosine_ema_momentum(base_momentum: float, final_momentum: float = 1.0) -> Callable[[int, int], float]:
     """BYOL EMA momentum: tau anneals from ``base_momentum`` to
     ``final_momentum`` by cosine over ``total_steps``."""

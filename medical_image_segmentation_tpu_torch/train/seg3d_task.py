@@ -19,6 +19,13 @@ statistics and the gradient mean run over every rank. ``logits`` and
 ``space``, as the JAX eval shards on ``data`` only
 (``train/train_segmentation3d.py:300-330`` there); so does a rank that
 predicts alone.
+
+``arch="nnunet3d"`` builds nnU-Net's ``PlainConvUNet3D``
+(``models/plain_unet3d.py``) of ``features`` in place of ``UNet3D`` (``norm``
+does not apply: its norm is InstanceNorm), trained on integer label maps
+with nnU-Net's optimizer and schedule (SGD-Nesterov with clipping, poly)
+and its loss, ``loss="dice_ce_ds"``; it refuses a mesh with more than one
+``space`` rank.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Iterator, Sequence
 
 import torch
 
+from medical_image_segmentation_tpu_torch.models.plain_unet3d import PlainConvUNet3D
 from medical_image_segmentation_tpu_torch.models.unet3d import UNet3D, set_space_group
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
 
@@ -51,10 +59,25 @@ class Segmentation3DTask(SegmentationTask):
         device="cuda",
         remat: bool = False,
         mesh=None,
+        arch: str = "unet3d",
     ):
-        net_kw = dict(n_classes=n_classes, in_channels=in_channels, features=tuple(features), norm=norm, remat=remat)
-        self._build(UNet3D, net_kw, torch.channels_last_3d, learning_rate, weight_decay, momentum, warmup_epochs,
-                    max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh)
+        if arch == "nnunet3d":
+            if mesh is not None and mesh.size("space") > 1:
+                raise ValueError("arch 'nnunet3d' does not support depth sharding (a space group of "
+                                 f"{mesh.size('space')} ranks)")
+            if loss != "dice_ce_ds":
+                raise ValueError(f"arch 'nnunet3d' trains with loss 'dice_ce_ds', not {loss!r}")
+            net_cls, net_kw = PlainConvUNet3D, dict(in_channels=in_channels, n_classes=n_classes,
+                                                    features=tuple(features), deep_supervision=True, remat=remat)
+            optimizer, schedule = "sgd_nesterov", "poly"
+        elif arch == "unet3d":
+            net_cls, net_kw = UNet3D, dict(n_classes=n_classes, in_channels=in_channels, features=tuple(features),
+                                           norm=norm, remat=remat)
+            optimizer, schedule = "lars", "warmup_cosine"
+        else:
+            raise ValueError(f"arch must be 'unet3d' or 'nnunet3d', got {arch!r}")
+        self._build(net_cls, net_kw, torch.channels_last_3d, learning_rate, weight_decay, momentum, warmup_epochs,
+                    max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh, optimizer, schedule)
         self._space_group = mesh.group("space") if mesh is not None else None
         set_space_group(self.model, self._space_group)
 

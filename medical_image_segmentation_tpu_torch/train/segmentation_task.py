@@ -12,6 +12,18 @@
   parameters, loss and metrics;
 - ``remat`` checkpoints each residual block of the encoder;
   ``state_dict``/``load_state_dict`` carry the model, optimizer and step;
+- nnU-Net's recipe (``train/seg3d_task.py``'s ``arch="nnunet3d"``):
+  ``loss="dice_ce_ds"`` (softmax Dice + CE over the deep-supervision
+  outputs, ``ops/dice.py``), ``optimizer="sgd_nesterov"`` (torch's SGD
+  with Nesterov momentum and weight decay, the gradient's global norm
+  clipped to nnU-Net's 12) and ``schedule="poly"`` (exponent 0.9 over
+  ``max_epochs × steps_per_epoch``, per step); eval then reports the soft
+  Dice loss and the hard Dice and IoU of the argmax, a foreground class
+  each (``dice_class{c}``) and their means;
+- under a profiler the step is a ``mis.train.step`` span holding
+  ``train.forward`` (with ``seg.loss``), ``train.backward``,
+  ``train.grad_exchange``, ``train.update`` and ``train.metrics``, as
+  ``train/byol_task.py``'s;
 - ``mesh`` (``parallel/mesh.py``) trains over the ``data`` ranks as the
   JAX task does over a sharded batch: each rank passes its rows, the
   BatchNorm statistics and the Dice sums are the global batch's, the
@@ -28,15 +40,19 @@ from typing import Dict
 
 import torch
 
+from medical_image_segmentation_tpu_torch.core.profiling import span
 from medical_image_segmentation_tpu_torch.models.batchnorm import set_group
 from medical_image_segmentation_tpu_torch.models.unet import UNet
 from medical_image_segmentation_tpu_torch.ops.dice import (
-    dice_ce, dice_coefficient, dice_loss, jaccard_index, post_process_masks,
+    deep_supervised_dice_ce, deep_supervision_weights, dice_ce, dice_coefficient, dice_loss, jaccard_index,
+    per_class_dice, per_class_jaccard, post_process_masks, softmax_dice_loss,
 )
 from medical_image_segmentation_tpu_torch.ops.lars import LARS
-from medical_image_segmentation_tpu_torch.ops.schedules import linear_warmup_cosine_annealing
+from medical_image_segmentation_tpu_torch.ops.schedules import linear_warmup_cosine_annealing, poly
 from medical_image_segmentation_tpu_torch.parallel.mesh import all_reduce_mean_grads, global_mean, replicate
 from medical_image_segmentation_tpu_torch.parallel.replicas import Replicas
+
+CLIP_NORM = 12.0  # nnU-Net's bound on the gradient's global norm (SGD only)
 
 
 class SegmentationTask:
@@ -63,26 +79,46 @@ class SegmentationTask:
                     steps_per_epoch, loss, dtype, device, mesh)
 
     def _build(self, net_cls, net_kw, memory_format, learning_rate, weight_decay, momentum, warmup_epochs,
-               max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh=None) -> None:
+               max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh=None, optimizer: str = "lars",
+               schedule: str = "warmup_cosine") -> None:
         """Everything but the choice of network, which ``train/seg3d_task.py`` makes differently."""
-        if loss not in ("dice", "dice_ce"):
-            raise ValueError(f"loss must be 'dice' or 'dice_ce', got {loss!r}")
+        if loss not in ("dice", "dice_ce", "dice_ce_ds"):
+            raise ValueError(f"loss must be 'dice', 'dice_ce' or 'dice_ce_ds', got {loss!r}")
+        if optimizer not in ("lars", "sgd_nesterov"):
+            raise ValueError(f"optimizer must be 'lars' or 'sgd_nesterov', got {optimizer!r}")
+        if schedule not in ("warmup_cosine", "poly"):
+            raise ValueError(f"schedule must be 'warmup_cosine' or 'poly', got {schedule!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{type(self).__name__}: device {device!r} asked for, but CUDA is not "
                                "available (pass device='cpu' explicitly)")
         self.dtype = dtype
-        self._loss = dice_ce if loss == "dice_ce" else dice_loss
         self._net_cls, self._net_kw = net_cls, net_kw
         self.model = net_cls(**net_kw).to(self.device, memory_format=memory_format)
+        self.multiclass = loss == "dice_ce_ds"
+        if self.multiclass:
+            if not getattr(self.model, "deep_supervision", False):
+                raise ValueError(f"loss 'dice_ce_ds' needs a deep-supervised network, not {net_cls.__name__}")
+            weights = deep_supervision_weights(len(self.model.features) - 1)
+            self._loss = lambda outs, labels, group: deep_supervised_dice_ce(outs, labels, weights, group)
+        else:
+            self._loss = dice_ce if loss == "dice_ce" else dice_loss
         self.mesh = mesh
         self._axis = "all" if mesh is not None and mesh.size("space") > 1 else "data"
         self._group = mesh.group(self._axis) if mesh is not None else None
         self._eval_group = mesh.group("data") if mesh is not None else None
         set_group((self.model,), self._group)
-        self.schedule = linear_warmup_cosine_annealing(
-            learning_rate, warmup_epochs, max_epochs, eta_min=min_lr, steps_per_epoch=steps_per_epoch)
-        self.optimizer = LARS(self.model.parameters(), lr=0.0, weight_decay=weight_decay, momentum=momentum)
+        if schedule == "poly":
+            self.schedule = poly(learning_rate, max_epochs * steps_per_epoch)
+        else:
+            self.schedule = linear_warmup_cosine_annealing(
+                learning_rate, warmup_epochs, max_epochs, eta_min=min_lr, steps_per_epoch=steps_per_epoch)
+        self.clip_norm = CLIP_NORM if optimizer == "sgd_nesterov" else None
+        if optimizer == "sgd_nesterov":
+            self.optimizer = torch.optim.SGD(self.model.parameters(), lr=0.0, momentum=momentum, nesterov=True,
+                                             weight_decay=weight_decay, foreach=True)
+        else:
+            self.optimizer = LARS(self.model.parameters(), lr=0.0, weight_decay=weight_decay, momentum=momentum)
         self.step = 0
 
     def init(self, seed: int) -> None:
@@ -101,17 +137,28 @@ class SegmentationTask:
         """One step on a channels-last batch. ``train/loss`` is a 0-d device tensor
         (no sync), ``lr`` a float."""
         self.model.train()
-        with self._autocast():
-            loss = self._loss(self.model(images), masks, group=self._group)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_mean_grads(self.model.parameters(), self._group)
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.step += 1
-        return {"train/loss": global_mean(loss.detach(), self._group), "lr": lr}
+        with span("train.step"):
+            with span("train.forward"):
+                with self._autocast():
+                    out = self.model(images)
+                    with span("seg.loss"):
+                        loss = self._loss(out, masks, group=self._group)
+            with span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("train.grad_exchange"):
+                all_reduce_mean_grads(self.model.parameters(), self._group)
+            with span("train.update"):
+                if self.clip_norm is not None:
+                    torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.clip_norm, foreach=True)
+                lr = self.schedule(self.step)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+            self.step += 1
+            with span("train.metrics"):
+                loss = global_mean(loss.detach(), self._group)
+        return {"train/loss": loss, "lr": lr}
 
     @torch.no_grad()
     def logits(self, images: torch.Tensor) -> torch.Tensor:
@@ -134,6 +181,12 @@ class SegmentationTask:
 
     def eval_step(self, images: torch.Tensor, masks: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits = self.logits(images)
+        if self.multiclass:
+            g = self._eval_group
+            dice, iou = per_class_dice(logits, masks, group=g), per_class_jaccard(logits, masks, group=g)
+            out = {"loss": softmax_dice_loss(logits, masks, group=g), "dice": dice.mean(), "iou": iou.mean()}
+            out.update({f"dice_class{c + 1}": d for c, d in enumerate(dice)})
+            return out
         pred = post_process_masks(logits)
         return {"loss": dice_loss(logits, masks, group=self._eval_group),
                 "dice": dice_coefficient(pred, masks, group=self._eval_group),

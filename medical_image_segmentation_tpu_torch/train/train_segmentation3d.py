@@ -28,6 +28,17 @@ Medical Decathlon NIfTI volumes on the host to ``--volume_size`` →
   larger than the train split is refused, since every epoch would run no
   step.
 
+``--arch nnunet3d --classes K`` trains nnU-Net's 3d_fullres network
+(``models/plain_unet3d.py``) on the volumes' integer label maps (K
+classes, background included) with its recipe (SGD with Nesterov
+momentum 0.99 and the gradient norm clipped to 12, the poly schedule);
+flags left unset take nnU-Net's values (``--features 32 64 128 256 320
+320``, ``--loss dice_ce_ds``, ``--learning_rate 0.01``, ``--weight_decay
+3e-5``); under ``--arch unet3d`` (the default) every flag keeps its
+default. bf16 autocast stands in for nnU-Net's fp16 with a gradient
+scaler. It refuses ``--space_shards`` above 1, ``--ssl_checkpoint`` and
+``--full_res_window``.
+
 Several processes (torchrun or SLURM, ``parallel/mesh.py``): the global
 ``--batch_size`` divides by the data shards; each rank reads its data
 shard of the volumes (``VolumeLoader(num_hosts=data shards,
@@ -81,6 +92,13 @@ DEVICE_CACHE_SINGLE = ("--device_cache is single-process only (a per-host corpus
                        "shuffle); use --cache_volumes on multi-host runs")
 
 
+# nnU-Net's recipe: what --arch nnunet3d takes for the flags left unset
+NNUNET_DEFAULTS = dict(learning_rate=0.01, weight_decay=3e-5, features=(32, 64, 128, 256, 320, 320),
+                       loss="dice_ce_ds")
+NNUNET_MOMENTUM = 0.99
+_UNSET = object()
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description="3D U-Net volumetric segmentation (PyTorch/CUDA port)")
     ap.add_argument("--images_dir", required=True)
@@ -92,6 +110,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="device-side random train crop (centre crop at eval)")
     ap.add_argument("--batch_size", type=int, default=4)
     ap.add_argument("--max_epochs", type=int, default=50)
+    ap.add_argument("--arch", default="unet3d", choices=["unet3d", "nnunet3d"],
+                    help="unet3d (the JAX package's 3D U-Net) or nnunet3d (nnU-Net's 3d_fullres PlainConvUNet, "
+                         "multi-class, deep supervision; the flags left unset take nnU-Net's values)")
+    ap.add_argument("--classes", type=int, default=1,
+                    help="classes of the label maps, background included (nnunet3d: at least 2)")
     ap.add_argument("--learning_rate", type=float, default=1.0)
     ap.add_argument("--min_lr", type=float, default=1e-2)
     ap.add_argument("--warmup_epochs", type=int, default=10)
@@ -100,7 +123,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--norm", default="group", choices=["group", "batch"])
     ap.add_argument("--mean", type=float, default=0.2089, help="dataset mean on the 0-1 scale")
     ap.add_argument("--std", type=float, default=0.2109)
-    ap.add_argument("--loss", default="dice", choices=["dice", "dice_ce"])
+    ap.add_argument("--loss", default="dice", choices=["dice", "dice_ce", "dice_ce_ds"])
     ap.add_argument("--hu_windows", default=None, metavar="L:W,L:W,…",
                     help="fixed display windows (level:width on the 0-1 intensity scale) stacked as input "
                          "channels; applied at train, eval and sliding-window eval")
@@ -141,7 +164,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--force_hbm", action="store_true",
                     help="run even if the probe step, on top of what already lives on the card, does not fit "
                          "its memory: the guard then warns instead of refusing")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv, argparse.Namespace(**{k: _UNSET for k in NNUNET_DEFAULTS}))
+    for key, value in NNUNET_DEFAULTS.items():  # a flag left unset: its default, or nnU-Net's value
+        if getattr(args, key) is _UNSET:
+            setattr(args, key, value if args.arch == "nnunet3d" else ap.get_default(key))
+    if args.arch == "nnunet3d":
+        for flag, bad in (("--space_shards", args.space_shards > 1), ("--ssl_checkpoint", args.ssl_checkpoint),
+                          ("--full_res_window", args.full_res_window)):
+            if bad:
+                ap.error(f"--arch nnunet3d does not support {flag}")
+        if args.classes < 2:
+            ap.error("--arch nnunet3d needs --classes of at least 2 (background included)")
+    elif args.classes != 1:
+        ap.error("--arch unet3d trains one sigmoid class: --classes must be 1")
+    return args
 
 
 @dataclasses.dataclass
@@ -193,10 +229,12 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
     if device.type == "cuda":
         torch.backends.cudnn.benchmark = True
     volume_size, crop = tuple(args.volume_size), tuple(args.crop_size)
+    labels = args.arch == "nnunet3d"
 
     def dataset(split: str) -> DecathlonVolumeDataset:
         return DecathlonVolumeDataset(args.images_dir, args.masks_dir, target_shape=volume_size,
-                                      split_file=args.split_file, split=split, cache=args.cache_volumes)
+                                      split_file=args.split_file, split=split, cache=args.cache_volumes,
+                                      labels=labels)
 
     ds_train = dataset("train")
     train_loader = VolumeLoader(ds_train, per_rank, shuffle=True, seed=args.seed, num_hosts=shard[1],
@@ -211,10 +249,11 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
     hu_windows = parse_hu_windows(args.hu_windows, value_max=1.0) if args.hu_windows else ()
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     task = Segmentation3DTask(
-        n_classes=1, in_channels=len(hu_windows) or 1, features=tuple(args.features), norm=args.norm,
-        learning_rate=args.learning_rate, weight_decay=args.weight_decay, warmup_epochs=args.warmup_epochs,
+        n_classes=args.classes, in_channels=len(hu_windows) or 1, features=tuple(args.features), norm=args.norm,
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay,
+        momentum=NNUNET_MOMENTUM if args.arch == "nnunet3d" else 0.9, warmup_epochs=args.warmup_epochs,
         max_epochs=args.max_epochs, min_lr=args.min_lr, steps_per_epoch=steps_per_epoch, loss=args.loss,
-        dtype=dtype, device=device, remat=args.remat, mesh=mesh,
+        dtype=dtype, device=device, remat=args.remat, mesh=mesh, arch=args.arch,
     )
     task.init(args.seed)
     if args.ssl_checkpoint:
@@ -232,7 +271,7 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
     def augment(vols, msks, train: bool):  # eval takes whole crops, replicated over space
         return segmentation_augment_3d(aug_gen if train else None, vols, msks, out_size=crop, mean=(args.mean,),
                                        std=(args.std,), train=train, dtype=dtype, hu_windows=hu_windows, shard=shard,
-                                       depth=slab if train else slice(None))
+                                       depth=slab if train else slice(None), labels=labels)
 
     # the eval splits are set up once, before the memory guard, so that its
     # probe runs on top of every corpus the run will keep on the card

@@ -148,14 +148,19 @@ def _options(parse_args, argv):
     return seen
 
 
-@pytest.mark.parametrize("jax_mod,port_mod,argv", [
-    (jseg3d, train_segmentation3d, ["--images_dir", "a", "--masks_dir", "b"]),
-    (jssl3d, train_ssl3d, ["--images_dir", "a"]),
-    (jpredict3d, predict3d, ["--images_dir", "a", "--output_dir", "o"]),
+# the port's own flags beyond the JAX twin's: nnU-Net's network and recipe (``--arch nnunet3d``)
+NNUNET_FLAGS = {"--arch": "unet3d", "--classes": 1}
+
+
+@pytest.mark.parametrize("jax_mod,port_mod,argv,own", [
+    (jseg3d, train_segmentation3d, ["--images_dir", "a", "--masks_dir", "b"], NNUNET_FLAGS),
+    (jssl3d, train_ssl3d, ["--images_dir", "a"], {}),
+    (jpredict3d, predict3d, ["--images_dir", "a", "--output_dir", "o"], {}),
 ], ids=["seg3d", "ssl3d", "predict3d"])
-def test_every_flag_of_the_jax_twin_plus_device(jax_mod, port_mod, argv):
+def test_every_flag_of_the_jax_twin_plus_device(jax_mod, port_mod, argv, own):
     want, got = _options(jax_mod.parse_args, argv), _options(port_mod.parse_args, argv)
-    assert set(got) - set(want) == {"--device"} and not set(want) - set(got)
+    assert set(got) - set(want) == {"--device", *own} and not set(want) - set(got)
+    assert all(got[k] == v for k, v in own.items())  # defaults that leave the JAX twin's run as it was
     assert all(got[k] == want[k] for k in want), {k: (want[k], got[k]) for k in want if got[k] != want[k]}
     assert got["--device"] == "cuda"
 
