@@ -35,7 +35,23 @@ exits non-zero and prints no result:
    backward on the global path, counted at the module boundary, with no
    BatchNorm left on local statistics (``dist_byol``: 195 a ResNet-18 BYOL
    step).
-3b. native_store: builds the port's native store reader
+3b. in_kernels: nnU-Net's InstanceNorm + LeakyReLU kernels
+   (``csrc/instance_norm.cu``) at ``nnunet3d_liver.train``'s shapes, B=2
+   at 128³ × 32, 32³ × 128 and 4³ × 320, bf16 channels_last_3d: each
+   against its plain version (statistics within 1e-5, the same bits on a
+   second call, y and dx from the same statistics and sums within 1 bf16
+   ulp, the sums within 1e-5 of Σ|v|), then timed cold by CUDA events
+   beside its byte bound at 3.35 TB/s, with the forward and backward
+   against the bytes the design moves (3a and 5a, one kernel 2a and 3a),
+   the plain versions' times and ``F.instance_norm`` + ``F.leaky_relu``
+   and their autograd backward as ``library_ms`` (the port never calls
+   these). Then two of nnU-Net's train steps at 128³, batch 2: 108 kernels
+   a step (16 norms of three kernels and 6 of one, each direction), the
+   ``norm.instance_kernels`` and ``norm.instance_values`` counters, and the
+   gradients copied into channels-last a step (``dy_copies_per_step``).
+   The phases after it count the launches on the BYOL and 2D U-Net,
+   ingest, parity, serving, ``UNet3D`` (GroupNorm) and bench paths: none.
+3c. native_store: builds the port's native store reader
    (``medical_image_segmentation_tpu_torch/csrc/mis_loader.cpp`` with its
    own JPEG and PNG decoders and the DICOM codecs) with ``g++`` alone, on
    a thread started before phase 2, and prints the command, its seconds, the shared object's ``ldd`` libraries
@@ -320,6 +336,7 @@ PKG = "medical_image_segmentation_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/two_view_augment.cu"
 REPLACES = "medical_image_segmentation_tpu/ops/pallas_augment.py:210"
 BN_KERNEL_SOURCE = f"{PKG}/csrc/global_batchnorm.cu"
+IN_KERNEL_SOURCE = f"{PKG}/csrc/instance_norm.cu"
 
 
 class SmokeFailure(Exception):
@@ -722,6 +739,222 @@ def run_bn_kernels(torch, card: str) -> dict:
         torch.cuda.empty_cache()
     gbn.launches = 0  # the paths count from here
     return record
+
+
+# nnU-Net's InstanceNorm + LeakyReLU at nnunet3d_liver.train's shapes: 2 crops of 128³ at the
+# first stage (three quarters of its bytes), the third, and the deepest
+IN_CASES = (("128x32", (2, 32, 128, 128, 128)), ("32x128", (2, 128, 32, 32, 32)), ("4x320", (2, 320, 4, 4, 4)))
+IN_DEVICE = "cuda"
+IN_EPS, IN_SLOPE = 1e-5, 0.01
+IN_STEP = {"crop": 128, "batch": 2, "steps": 2}
+IN_STEP_KERNELS = 108  # 16 norms of three kernels and 6 of one, forward and backward
+IN_STEP_VALUES = 714_424_320  # values the 22 norms normalize a step
+
+
+def in_kernel_bytes(shape, elem: int) -> dict:
+    """Bytes each of InstanceNorm's passes needs on an activation of
+    ``shape``: each activation-sized input read once, each output written
+    once; (B, C) statistics and sums, and the (C,) affine and gradients, at
+    4 bytes."""
+    b, c = shape[:2]
+    a = math.prod(shape) * elem
+    stats, vec = 8 * b * c, 8 * c
+    return {"stats": a + stats, "normalize": 2 * a + stats + vec, "backward_reduce": 2 * a + 2 * stats + 2 * vec,
+            "backward_elemt": 3 * a + 2 * stats + vec, "fused_forward": 2 * a + stats + vec,
+            "fused_backward": 3 * a + 2 * stats + 2 * vec}
+
+
+def in_inputs(torch, shape, seed: int):
+    """A seeded bf16 channels_last_3d activation with a mean and scale of
+    its own per channel, as a conv with a bias gives."""
+    gen = torch.Generator(device=IN_DEVICE).manual_seed(seed)
+    view = (1, shape[1]) + (1,) * (len(shape) - 2)
+    x = (torch.randn(shape, generator=gen, device=IN_DEVICE) * (0.5 + torch.rand(view, generator=gen, device=IN_DEVICE))
+         + torch.randn(view, generator=gen, device=IN_DEVICE))
+    return x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+
+
+def check_in_case(torch, inn, name, x, dy, w, b) -> tuple:
+    """The kernels against their plain versions on one activation: the
+    statistics within 1e-5 (of invstd, and of |mean| + std for the mean),
+    the same bits on a second call, y and dx from the same statistics and
+    sums within 1 bf16 ulp, the sums within 1e-5 of the sums of their terms'
+    magnitudes. Returns the errors and the kernels' outputs for the timing."""
+    want_mean, want_invstd = inn.statistics_reference(x, IN_EPS)
+    fused = inn.launches_per_call(x) == 1
+    if fused:
+        y, mean, invstd = inn.fused_forward(x, w, b, IN_EPS, IN_SLOPE)
+        again = inn.fused_forward(x, w, b, IN_EPS, IN_SLOPE)
+        check(all(torch.equal(u, v) for u, v in zip(again, (y, mean, invstd))),
+              f"in_kernels {name}: two forward calls differ")
+    else:
+        mean, invstd = inn.statistics(x, IN_EPS)
+        check(all(torch.equal(u, v) for u, v in zip(inn.statistics(x, IN_EPS), (mean, invstd))),
+              f"in_kernels {name}: two statistics calls differ")
+        y = inn.normalize(x, w, b, mean, invstd, IN_SLOPE)
+    mean_err = float(((mean - want_mean).abs() / (want_mean.abs() + 1.0 / want_invstd)).max())
+    invstd_err = float(((invstd - want_invstd).abs() / want_invstd).max())
+    check(mean_err <= 1e-5 and invstd_err <= 1e-5,
+          f"in_kernels {name}: statistics differ from the plain version by {mean_err}, {invstd_err}")
+    y_ulp = bf16_ulps(y, inn.normalize_reference(x, w, b, mean, invstd, IN_SLOPE))
+    check(y_ulp <= 1, f"in_kernels {name}: y differs from the plain version by {y_ulp} bf16 ulp")
+    if fused:
+        dx, sums, _, _ = inn.fused_backward(x, dy, w, b, mean, invstd, IN_SLOPE)
+    else:
+        sums, _, _ = inn.backward_reduce(x, dy, w, b, mean, invstd, IN_SLOPE)
+        dx = inn.backward_elemt(x, dy, w, b, mean, invstd, sums, IN_SLOPE)
+    xhat, g = inn._through(x, dy, w, b, mean, invstd, IN_SLOPE)
+    scale = torch.cat([g.abs().sum(1), (g * xhat).abs().sum(1)], dim=1)
+    del xhat, g
+    sums_err = float(((sums - inn.backward_reduce_reference(x, dy, w, b, mean, invstd, IN_SLOPE)).abs()
+                      / scale).max())
+    check(sums_err <= 1e-5, f"in_kernels {name}: backward sums differ by {sums_err} of sum |v|")
+    dx_ulp = bf16_ulps(dx, inn.backward_elemt_reference(x, dy, w, b, mean, invstd, sums, IN_SLOPE))
+    check(dx_ulp <= 1, f"in_kernels {name}: dx differs from the plain version by {dx_ulp} bf16 ulp")
+    torch.cuda.synchronize()
+    return dict(mean_err=mean_err, invstd_err=invstd_err, y_ulp=y_ulp, sums_err=sums_err, dx_ulp=dx_ulp), \
+        (mean, invstd, sums)
+
+
+def in_library_calls(torch, x, dy, w, b):
+    """``F.instance_norm`` + ``F.leaky_relu`` and autograd's backward of
+    them: the yardstick, never the port's path."""
+    F = torch.nn.functional
+    xl, wl, bl = x.detach().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()
+    yl = F.leaky_relu(F.instance_norm(xl, weight=wl, bias=bl, eps=IN_EPS), IN_SLOPE)
+    return {"forward": lambda: F.leaky_relu(F.instance_norm(x, weight=w, bias=b, eps=IN_EPS), IN_SLOPE),
+            "backward": lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True)}
+
+
+def run_in_step(torch, card: str) -> dict:
+    """nnU-Net's train step at nnunet3d_liver.train's size (128³, batch 2,
+    the published widths, bf16): the kernels it launches a step (the run
+    fails on another count than ``IN_STEP_KERNELS``), the gradients and
+    activations it had to copy into channels-last, and the values it
+    normalizes."""
+    from medical_image_segmentation_tpu_torch.core import profiling
+    from medical_image_segmentation_tpu_torch.models.plain_unet3d import nnunet_features
+    from medical_image_segmentation_tpu_torch.ops import instance_norm as inn
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+
+    task = Segmentation3DTask(arch="nnunet3d", n_classes=3, features=nnunet_features(), loss="dice_ce_ds",
+                              learning_rate=0.01, momentum=0.99, weight_decay=3e-5, max_epochs=1000,
+                              steps_per_epoch=250, dtype=torch.bfloat16, device=IN_DEVICE)
+    task.init(0)
+    gen = torch.Generator(device=IN_DEVICE).manual_seed(5)
+    size = (IN_STEP["batch"], *(IN_STEP["crop"],) * 3, 1)
+    x = torch.randn(size, generator=gen, device=IN_DEVICE)
+    labels = torch.randint(0, 3, size, generator=gen, device=IN_DEVICE).float()
+    launches, copies, losses = [], [], []
+    for step in range(IN_STEP["steps"]):
+        before, dy_before, x_before = inn.launches, inn.dy_copies, inn.x_copies
+        profiling.reset_counters()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) if step == 0 \
+                else contextlib.nullcontext():
+            losses.append(float(task.train_step(x, labels)["train/loss"]))
+        if step == 0:
+            counted = profiling.counters()
+            check(counted.get("norm.instance_kernels") == IN_STEP_KERNELS
+                  and counted.get("norm.instance_values") == IN_STEP_VALUES,
+                  f"in_kernels nnunet step: counters {counted}")
+        launches.append(inn.launches - before)
+        copies.append((inn.dy_copies - dy_before, inn.x_copies - x_before))
+    profiling.reset_counters()
+    check(all(n == IN_STEP_KERNELS for n in launches),
+          f"the nnU-Net train step launched {launches} InstanceNorm kernels a step, not {IN_STEP_KERNELS}")
+    check(all(math.isfinite(v) for v in losses), f"in_kernels nnunet step: losses {losses}")
+    del task
+    torch.cuda.empty_cache()
+    return {"launches_per_step": launches[0], "dy_copies_per_step": copies[0][0], "x_copies_per_step": copies[0][1],
+            "losses": losses}
+
+
+def take_in_launches(paths: dict, path: str) -> None:
+    """InstanceNorm's kernel launches in this process since the last take,
+    added to ``paths[path]``: none of the smoke's other paths runs nnU-Net."""
+    from medical_image_segmentation_tpu_torch.ops import instance_norm as inn
+
+    paths[path] = paths.get(path, 0) + inn.launches
+    inn.launches = 0
+
+
+def run_in_kernels(torch, card: str) -> dict:
+    """InstanceNorm's kernels against their plain versions, timed beside
+    their bounds, the plain versions and the library calls at the nnU-Net
+    cell's shapes, then the nnU-Net train step's launches. Returns the
+    kernels-line fields of ``instance_norm``; the other paths' launches are
+    counted where they run (``take_in_launches``)."""
+    from medical_image_segmentation_tpu_torch.ops import _kernels
+    from medical_image_segmentation_tpu_torch.ops import instance_norm as inn
+
+    t0 = time.time()
+    so = _kernels.build_kernel("instance_norm")
+    with open(so[:-3] + ".log") as f:
+        ptxas = " | ".join(ln.strip() for ln in f if "registers" in ln or "spill" in ln or "stack" in ln)
+    phase("build", kernel="instance_norm", seconds=round(time.time() - t0, 2), ptxas=ptxas or "(cached)")
+    record = {}
+    for name, shape in IN_CASES:
+        x, dy = in_inputs(torch, shape, 0), in_inputs(torch, shape, 1)
+        gen = torch.Generator(device=IN_DEVICE).manual_seed(2)
+        w = torch.rand(shape[1], generator=gen, device=IN_DEVICE) + 0.5
+        b = torch.randn(shape[1], generator=gen, device=IN_DEVICE)
+        errs, (mean, invstd, sums) = check_in_case(torch, inn, name, x, dy, w, b)
+        per = inn.launches_per_call(x)
+        before = inn.launches
+        inn.forward(x, w, b, IN_EPS, IN_SLOPE)
+        inn.backward(x, dy, w, b, mean, invstd, IN_SLOPE)
+        check(inn.launches - before == 2 * per, f"in_kernels {name}: {inn.launches - before} launches, not 2 × {per}")
+        if per == 1:
+            kernels = {"fused_forward": lambda: inn.fused_forward(x, w, b, IN_EPS, IN_SLOPE),
+                       "fused_backward": lambda: inn.fused_backward(x, dy, w, b, mean, invstd, IN_SLOPE)}
+            plain = {"fused_forward": lambda: inn.normalize_reference(x, w, b, *inn.statistics_reference(x, IN_EPS),
+                                                                      IN_SLOPE),
+                     "fused_backward": lambda: inn.backward_elemt_reference(
+                         x, dy, w, b, mean, invstd, inn.backward_reduce_reference(x, dy, w, b, mean, invstd, IN_SLOPE),
+                         IN_SLOPE)}
+        else:
+            kernels = {"stats": lambda: inn.statistics(x, IN_EPS),
+                       "normalize": lambda: inn.normalize(x, w, b, mean, invstd, IN_SLOPE),
+                       "backward_reduce": lambda: inn.backward_reduce(x, dy, w, b, mean, invstd, IN_SLOPE),
+                       "backward_elemt": lambda: inn.backward_elemt(x, dy, w, b, mean, invstd, sums, IN_SLOPE)}
+            plain = {"stats": lambda: inn.statistics_reference(x, IN_EPS),
+                     "normalize": lambda: inn.normalize_reference(x, w, b, mean, invstd, IN_SLOPE),
+                     "backward_reduce": lambda: inn.backward_reduce_reference(x, dy, w, b, mean, invstd, IN_SLOPE),
+                     "backward_elemt": lambda: inn.backward_elemt_reference(x, dy, w, b, mean, invstd, sums,
+                                                                            IN_SLOPE)}
+        composite = {"forward": lambda: inn.forward(x, w, b, IN_EPS, IN_SLOPE),
+                     "backward": lambda: inn.backward(x, dy, w, b, mean, invstd, IN_SLOPE)}
+        try:
+            library = in_library_calls(torch, x, dy, w, b)
+        except RuntimeError as e:  # a yardstick that does not run here is reported, not fatal
+            library = f"refused: {str(e).splitlines()[0][:80]}"
+        need = in_kernel_bytes(shape, x.element_size())
+        a = math.prod(shape) * x.element_size()
+        fields = dict(case=name, shape=shape, launches_forward=per, launches_backward=per, **errs)
+        for part in kernels:  # the kernels first, before the plain versions fill the allocator's cache
+            ms = cold_ms(kernels[part], 10)
+            bound_ms = need[part] / HBM_BYTES_PER_S * 1e3
+            fields.update({f"{part}_ms": ms, f"{part}_bound_ms": bound_ms, f"{part}_share": bound_ms / ms,
+                           f"{part}_bytes": need[part]})
+        for part, moved in (("forward", 3 if per == 3 else 2), ("backward", 5 if per == 3 else 3)):
+            ms = cold_ms(composite[part], 10)  # against the bytes the design moves: 3a and 5a, fused 2a and 3a
+            fields.update({f"{part}_ms": ms, f"{part}_share": moved * a / HBM_BYTES_PER_S * 1e3 / ms})
+        for part in composite:
+            try:
+                fields[f"{part}_library_ms"] = library if isinstance(library, str) else cold_ms(library[part], 5)
+            except RuntimeError as e:
+                fields[f"{part}_library_ms"] = f"refused: {str(e).splitlines()[0][:80]}"
+        for part in plain:
+            fields[f"{part}_plain_ms"] = cold_ms(plain[part], 3)
+        phase("in_kernels", **fields, card=repr(card))
+        record[name] = {k: v for k, v in fields.items() if k.endswith(("_ms", "_share", "_bytes"))}
+        del x, dy, mean, invstd, sums, kernels, plain, composite, library
+        torch.cuda.empty_cache()
+    step = run_in_step(torch, card)
+    phase("in_kernels", case="nnunet_step", **step, card=repr(card))
+    inn.launches = 0  # the other paths count from here
+    return dict(launches_nnunet_train_path=step["launches_per_step"], dy_copies_per_step=step["dy_copies_per_step"],
+                **record)
 
 
 def run_ab(torch, fa, dm_mod, old_source: str, card: str) -> None:
@@ -3871,6 +4104,8 @@ def main(argv=None) -> int:
             return finish(torch, card, None)
         bn_record = run_bn_kernels(torch, card)
         bn_paths = {}  # global BatchNorm's launches in this process by path: one card, parity, serving, bench
+        in_record = run_in_kernels(torch, card)
+        in_paths = {}  # InstanceNorm's launches on the same paths: none runs nnU-Net
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         native_build.join()
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
@@ -3878,6 +4113,7 @@ def main(argv=None) -> int:
         run_parity(torch)
         run_seg_parity(torch)
         take_bn_launches(bn_paths, "parity")
+        take_in_launches(in_paths, "parity")
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             task, launches, ssl_ckpt, raw_ms = run_trainer(torch, fa, workdir, card)
             run_step_timing(torch, fa, task, card)
@@ -3889,6 +4125,7 @@ def main(argv=None) -> int:
             seg_ckpt = run_seg_train(torch, workdir, ssl_ckpt, card)
             run_predict(torch, workdir, seg_ckpt, card)
             take_bn_launches(bn_paths, "one_card")
+            take_in_launches(in_paths, "byol_unet2d")
             # the serving path: no TPU kernel lies on it, so none is launched
             before = fa.fused_two_view_augment.launches
             run_export(torch, workdir, seg_ckpt, card)
@@ -3896,6 +4133,7 @@ def main(argv=None) -> int:
             serving_launches = fa.fused_two_view_augment.launches - before
             multicard_launches = run_multicard_2d(torch, fa, workdir, seg_ckpt, card)
             take_bn_launches(bn_paths, "serving")
+            take_in_launches(in_paths, "serving")
             run_seg_step(torch, card)
             run_precrop(torch, fa, workdir, card)
             run_resume(torch, fa, workdir, card)
@@ -3909,8 +4147,10 @@ def main(argv=None) -> int:
             raw = run_ingest(torch, fa, workdir, card)
             ingest_launches = fa.fused_two_view_augment.launches
             take_bn_launches(bn_paths, "one_card")
+            take_in_launches(in_paths, "ingest")
             parity_launches, _ = run_parity_harness(torch, fa, workdir, raw, card)
             take_bn_launches(bn_paths, "parity")
+            take_in_launches(in_paths, "parity")
         # the volumetric path: no TPU kernel lies on it, so none is launched
         fa.fused_two_view_augment.launches = 0
         run_vol_parity(torch)
@@ -3924,16 +4164,19 @@ def main(argv=None) -> int:
             run_predict3d(torch, root, workdir, seg3d_ckpt, card)
             vol_launches = fa.fused_two_view_augment.launches
             take_bn_launches(bn_paths, "one_card")
+            take_in_launches(in_paths, "unet3d")
             window_art = run_export3d(torch, root, workdir, seg3d_ckpt, card)
             run_fused3d(torch, root, workdir, seg3d_ckpt, window_art, card)
             serving_launches += fa.fused_two_view_augment.launches - vol_launches
             fa.fused_two_view_augment.launches = vol_launches
             multicard_launches += run_multicard_3d(torch, fa, root, workdir, seg3d_ckpt, card)
             take_bn_launches(bn_paths, "serving")
+            take_in_launches(in_paths, "serving")
             space_launches += run_space_train(torch, fa, root, workdir, space_steps, card)
             fa.fused_two_view_augment.launches = vol_launches
         run_seg3d_step(torch, card)
         take_bn_launches(bn_paths, "one_card")
+        take_in_launches(in_paths, "unet3d")
         vol_launches = fa.fused_two_view_augment.launches
         check(vol_launches == 0, f"the volumetric path launched two_view_augment {vol_launches} times")
         check(serving_launches == 0, f"the serving path launched two_view_augment {serving_launches} times")
@@ -3943,7 +4186,9 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             bench_ranks_launches = run_bench_ranks(torch, fa, workdir, bench_values, card)
         take_bn_launches(bn_paths, "bench")
+        take_in_launches(in_paths, "bench")
         check(not any(bn_paths.values()), f"global BatchNorm launched on a one-card path: {bn_paths}")
+        check(not any(in_paths.values()), f"InstanceNorm's kernels launched off the nnU-Net path: {in_paths}")
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches,
                                      "launches_volumetric_path": vol_launches,
@@ -3959,7 +4204,10 @@ def main(argv=None) -> int:
                                     {"name": "global_batchnorm", "route": "cuda", "source": BN_KERNEL_SOURCE,
                                      "replaces": "none: flax's BatchNorm is left to XLA",
                                      **{f"launches_{path}_path": n for path, n in bn_paths.items()},
-                                     "launches_by_rank": BN_RANK_LAUNCHES, **bn_record}])
+                                     "launches_by_rank": BN_RANK_LAUNCHES, **bn_record},
+                                    {"name": "instance_norm", "route": "cuda", "source": IN_KERNEL_SOURCE,
+                                     "replaces": "none: flax's GroupNorm is left to XLA",
+                                     **{f"launches_{path}_path": n for path, n in in_paths.items()}, **in_record}])
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

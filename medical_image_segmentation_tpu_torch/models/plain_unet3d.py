@@ -13,10 +13,11 @@ Methods 18:203-211, 2021; ``dynamic_network_architectures``).
   autocast.
 
 Widths double from ``features[0]`` and stop at the cap that ``features``
-states (nnU-Net's 32 … 320, 320; ``nnunet_features``). InstanceNorm is
-``models/unet3d.py::group_norm`` with one group a channel: f32 statistics
-per sample and channel, the result in the compute dtype, then LeakyReLU in
-that dtype. Under a profiler each norm and its activation is a
+states (nnU-Net's 32 … 320, 320; ``nnunet_features``). InstanceNorm and
+its LeakyReLU are one autograd function (``ops/instance_norm.py``): f32
+statistics per sample and channel, the activation in f32 rounded once to
+the compute dtype; on a card, the hand-written kernels of
+``csrc/instance_norm.cu``. Under a profiler each norm and its activation is a
 ``mis.norm.instance`` span, and the counter ``norm.instance_values`` adds
 the values it normalizes (not again in a ``remat`` recompute).
 
@@ -33,12 +34,11 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from medical_image_segmentation_tpu_torch.core.profiling import count, span
 from medical_image_segmentation_tpu_torch.models.resnet import _checkpointed
-from medical_image_segmentation_tpu_torch.models.unet3d import group_norm
+from medical_image_segmentation_tpu_torch.ops.instance_norm import instance_norm_leaky_relu
 
 NEGATIVE_SLOPE = 0.01
 INSTANCE_NORM_EPS = 1e-5
@@ -63,8 +63,7 @@ class InstanceNorm3D(nn.Module):
         with span("norm.instance"):
             if not self.recomputing:
                 count("norm.instance_values", x.numel())
-            y = group_norm(x, x.shape[1], self.weight, self.bias, self.eps)
-            return F.leaky_relu(y, NEGATIVE_SLOPE)
+            return instance_norm_leaky_relu(x, self.weight, self.bias, self.eps, NEGATIVE_SLOPE)
 
 
 class PlainBlock3D(nn.Module):

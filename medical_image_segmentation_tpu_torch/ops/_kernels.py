@@ -48,6 +48,23 @@ SIGNATURES = {
         # x, dy, weight, mean, invstd, sums, count, dx, M, C, bf16, stream
         "mis_gbn_backward_elemt": (_I32, [_PTR] * 8 + [_I64, _I32, _I32, _PTR]),
     },
+    "instance_norm": {
+        # B, N, C, bf16 -> floats of scratch the two-pass sums need
+        "mis_in_work_floats": (_I32, [_I32, _I64, _I32, _I32, _PTR]),
+        # x, B, N, C, bf16, eps, work, work_floats, mean, invstd, stream
+        "mis_in_stats": (_I32, [_PTR, _I32, _I64, _I32, _I32, _F32, _PTR, _I64, _PTR, _PTR, _PTR]),
+        # x, mean, invstd, weight, bias, y, B, N, C, bf16, slope, stream
+        "mis_in_normalize": (_I32, [_PTR] * 6 + [_I32, _I64, _I32, _I32, _F32, _PTR]),
+        # x, dy, mean, invstd, weight, bias, B, N, C, bf16, slope, work, work_floats,
+        # sums, grad_weight, grad_bias, stream
+        "mis_in_backward_reduce": (_I32, [_PTR] * 6 + [_I32, _I64, _I32, _I32, _F32, _PTR, _I64] + [_PTR] * 4),
+        # x, dy, mean, invstd, weight, bias, sums, dx, B, N, C, bf16, slope, stream
+        "mis_in_backward_elemt": (_I32, [_PTR] * 8 + [_I32, _I64, _I32, _I32, _F32, _PTR]),
+        # x, weight, bias, y, mean, invstd, B, N, C, bf16, eps, slope, stream
+        "mis_in_fused_forward": (_I32, [_PTR] * 6 + [_I32, _I64, _I32, _I32, _F32, _F32, _PTR]),
+        # x, dy, mean, invstd, weight, bias, sums, grad_weight, grad_bias, dx, B, N, C, bf16, slope, stream
+        "mis_in_fused_backward": (_I32, [_PTR] * 10 + [_I32, _I64, _I32, _I32, _F32, _PTR]),
+    },
 }
 
 _LOCK = threading.Lock()
