@@ -19,6 +19,8 @@ are gathered (an all-reduce of a zero-filled buffer), in rank order, so
 every rank holds the whole bank and ``max_bank_size`` counts global rows.
 Each rank scores its own val rows; the accuracy is the global count of
 hits over the global total.
+
+``val_preprocess`` makes the images that the KNN and linear probes embed.
 """
 
 from __future__ import annotations
@@ -145,3 +147,18 @@ class KNNEvaluator:
             counts[1] += y.shape[0]
         correct, total = all_reduce_(counts, self.group).tolist()
         return correct / max(total, 1)
+
+
+def val_preprocess(imgs: torch.Tensor, dm, full_image: bool = False) -> torch.Tensor:
+    """What the probes embed and the SSL val pass scores: the val stats
+    normalize, after a center crop to the train crop size unless
+    ``full_image`` (``train_ssl.py:107-126``)."""
+    x = imgs.float()
+    if not full_image:
+        _, h, w, _ = imgs.shape
+        s = min(h, w, dm.crop_size)
+        y0, x0 = (h - s) // 2, (w - s) // 2
+        x = x[:, y0:y0 + s, x0:x0 + s, :]
+    mean = torch.tensor(dm.val_mean, dtype=torch.float32, device=x.device)
+    std = torch.tensor(dm.val_std, dtype=torch.float32, device=x.device)
+    return ((x - mean) / std).contiguous()

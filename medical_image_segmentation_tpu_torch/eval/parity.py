@@ -182,7 +182,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     if args.smoke:
         _apply_smoke(args)
-    from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
+    from medical_image_segmentation_tpu_torch.train.loop import resolve_device
 
     resolve_device(args.device)  # a missing card fails here, before any stage runs
     nproc = args.num_processes or args.num_workers

@@ -21,9 +21,10 @@ import torch
 from medical_image_segmentation_tpu_torch.core.checkpoint import load_checkpoint
 from medical_image_segmentation_tpu_torch.data.datamodules import get_datamodule
 from medical_image_segmentation_tpu_torch.data.device_feed import device_batches
+from medical_image_segmentation_tpu_torch.eval.knn import val_preprocess
 from medical_image_segmentation_tpu_torch.eval.linear_probe import LinearProbe
 from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
-from medical_image_segmentation_tpu_torch.train.train_ssl import _val_preprocess, resolve_device
+from medical_image_segmentation_tpu_torch.train.loop import resolve_device
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -65,7 +66,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     probe.init(1)
 
     def embed(imgs):
-        return task.embed_step(_val_preprocess(imgs, dm))
+        return task.embed_step(val_preprocess(imgs, dm))
 
     out: Dict[str, float] = {}
     for epoch in range(args.epochs):

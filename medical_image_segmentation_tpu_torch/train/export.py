@@ -30,9 +30,9 @@ import torch
 from medical_image_segmentation_tpu_torch.core.checkpoint import restore_model
 from medical_image_segmentation_tpu_torch.ops.augment import parse_hu_windows
 from medical_image_segmentation_tpu_torch.serve import export_predictor, save_predictor
+from medical_image_segmentation_tpu_torch.train.loop import resolve_device
 from medical_image_segmentation_tpu_torch.train.predict import resolve_stats
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
-from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

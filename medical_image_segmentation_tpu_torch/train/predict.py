@@ -58,8 +58,8 @@ from medical_image_segmentation_tpu_torch.ops.augment import parse_hu_windows
 from medical_image_segmentation_tpu_torch.ops.dice import post_process_masks
 from medical_image_segmentation_tpu_torch.parallel.replicas import local_devices
 from medical_image_segmentation_tpu_torch.serve import load_predictor, make_predict_fn, normalize_u8
+from medical_image_segmentation_tpu_torch.train.loop import resolve_device
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
-from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
 from medical_image_segmentation_tpu_torch.utils.png import decode_png, to_gray, write_png
 
 

@@ -52,8 +52,8 @@ from medical_image_segmentation_tpu_torch.ops.augment import parse_hu_windows
 from medical_image_segmentation_tpu_torch.ops.dice import post_process_masks
 from medical_image_segmentation_tpu_torch.parallel.replicas import local_devices
 from medical_image_segmentation_tpu_torch.serve import load_window_predictor, normalize_unit
+from medical_image_segmentation_tpu_torch.train.loop import resolve_device
 from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
-from medical_image_segmentation_tpu_torch.train.train_ssl import resolve_device
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

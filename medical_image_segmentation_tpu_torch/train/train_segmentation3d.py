@@ -23,10 +23,10 @@ Medical Decathlon NIfTI volumes on the host to ``--volume_size`` →
 - ``--full_res_window D H W`` then scores the test volumes (the train
   volumes when there is no test split) at their native size through
   sliding-window blending.
-- ``--resume``, SIGTERM/SIGINT, the checkpoint cadence, ``--remat`` and
-  the memory guard work as in ``train/train_segmentation.py``; a batch
-  larger than the train split is refused, since every epoch would run no
-  step.
+- ``--resume``, SIGTERM/SIGINT, the checkpoint cadence and the memory
+  guard are ``train/loop.py``'s, as in ``train/train_segmentation.py``,
+  which ``--remat`` follows too; a batch larger than the train split is
+  refused, since every epoch would run no step.
 
 ``--arch nnunet3d --classes K`` trains nnU-Net's 3d_fullres network
 (``models/plain_unet3d.py``) on the volumes' integer label maps (K
@@ -66,16 +66,11 @@ import argparse
 import contextlib
 import dataclasses
 import sys
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from medical_image_segmentation_tpu_torch.core.checkpoint import (
-    load_byol3d_encoder_into_unet3d, load_checkpoint, resume_latest, save_rank0, trainer_state,
-)
-from medical_image_segmentation_tpu_torch.core.hbm import guard_step, preserved, rank_hbm_capacity
-from medical_image_segmentation_tpu_torch.core.metrics_logger import CSVMetricsLogger
+from medical_image_segmentation_tpu_torch.core.checkpoint import load_byol3d_encoder_into_unet3d, load_checkpoint
 from medical_image_segmentation_tpu_torch.data.device_feed import build_corpus, volume_batches
 from medical_image_segmentation_tpu_torch.data.volumes import DecathlonVolumeDataset, VolumeLoader
 from medical_image_segmentation_tpu_torch.eval.sliding_window import sliding_window_predict_3d
@@ -84,9 +79,10 @@ from medical_image_segmentation_tpu_torch.ops.augment3d import segmentation_augm
 from medical_image_segmentation_tpu_torch.ops.dice import dice_coefficient, jaccard_index, post_process_masks
 from medical_image_segmentation_tpu_torch.parallel.mesh import depth_slab, shutdown_distributed
 from medical_image_segmentation_tpu_torch.parallel.replicas import local_devices
-from medical_image_segmentation_tpu_torch.train.resilience import PreemptionGuard
+from medical_image_segmentation_tpu_torch.train.loop import (
+    FitRun, TrainLoop, add_common_flags, epoch_steps, start_ranks,
+)
 from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
-from medical_image_segmentation_tpu_torch.train.train_ssl import start_ranks
 
 DEVICE_CACHE_SINGLE = ("--device_cache is single-process only (a per-host corpus would desynchronize the global "
                        "shuffle); use --cache_volumes on multi-host runs")
@@ -115,10 +111,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "multi-class, deep supervision; the flags left unset take nnU-Net's values)")
     ap.add_argument("--classes", type=int, default=1,
                     help="classes of the label maps, background included (nnunet3d: at least 2)")
-    ap.add_argument("--learning_rate", type=float, default=1.0)
     ap.add_argument("--min_lr", type=float, default=1e-2)
     ap.add_argument("--warmup_epochs", type=int, default=10)
-    ap.add_argument("--weight_decay", type=float, default=1e-6)
     ap.add_argument("--features", type=int, nargs="+", default=(32, 64, 128, 256))
     ap.add_argument("--norm", default="group", choices=["group", "batch"])
     ap.add_argument("--mean", type=float, default=0.2089, help="dataset mean on the 0-1 scale")
@@ -130,13 +124,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--space_shards", type=int, default=1, metavar="N",
                     help="shard each crop's depth over N ranks of a (data, space) mesh (halo-exchanged 3D "
                          "convolutions); the ranks must divide by N")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda", help="torch device; cuda raises if absent")
-    ap.add_argument("--log_dir", default="logs")
     ap.add_argument("--checkpoint_dir", default="checkpoints/seg3d")
-    ap.add_argument("--resume", action="store_true",
-                    help="continue from the latest checkpoint in --checkpoint_dir: weights, optimizer, step, "
-                         "data order and augmentation stream")
     ap.add_argument("--checkpoint_every_epochs", type=int, default=1,
                     help="periodic checkpoint cadence (0 = final checkpoint only)")
     ap.add_argument("--ssl_checkpoint", default=None,
@@ -149,8 +137,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="run the val split every N epochs and on the last one; 0 = no val pass at all "
                          "(test always runs at the end)")
     ap.add_argument("--limit_steps_per_epoch", type=int, default=0)
-    ap.add_argument("--bf16", action="store_true", default=True)
-    ap.add_argument("--fp32", dest="bf16", action="store_false")
     ap.add_argument("--remat", action="store_true", help="checkpoint each double-conv block")
     ap.add_argument("--cache_volumes", action="store_true",
                     help="keep the fitted volumes in host memory between epochs (len(ds)·∏volume_size·8 "
@@ -159,11 +145,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="put each split's volumes and masks on the device once and gather the batches there "
                          "by index: train and val then move no volume from host to device "
                          "(len(ds)·∏volume_size·5 bytes of device memory, which the memory guard counts)")
-    ap.add_argument("--skip_hbm_check", action="store_true",
-                    help="skip the pre-flight memory guard (one probe step, core/hbm.py)")
     ap.add_argument("--force_hbm", action="store_true",
                     help="run even if the probe step, on top of what already lives on the card, does not fit "
                          "its memory: the guard then warns instead of refusing")
+    add_common_flags(ap)
     args = ap.parse_args(argv, argparse.Namespace(**{k: _UNSET for k in NNUNET_DEFAULTS}))
     for key, value in NNUNET_DEFAULTS.items():  # a flag left unset: its default, or nnU-Net's value
         if getattr(args, key) is _UNSET:
@@ -181,28 +166,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 @dataclasses.dataclass
-class Seg3DRun:
-    """What a run did: the task at its end, the weights it started from
-    (after the graft; CPU copies), one record per epoch (``steps``,
-    ``seconds``, ``vol_per_s``, ``loss``), every step's loss (0-d device
-    tensors) and ``(step, lr)``, the last val, the test and the full-res
-    metrics, the last checkpoint written, whether a signal stopped it, the
-    step it resumed from and the batches it skipped, the memory guard's
-    report and the bytes of the corpora on the device."""
+class Seg3DRun(FitRun):
+    """``FitRun``'s fields, the rate ``vol_per_s``, and: the weights it
+    started from (after the graft; CPU copies), every step's loss (0-d
+    device tensors) and ``(step, lr)``, the last val, the test and the
+    full-res metrics, and the bytes of the corpora on the device."""
 
-    task: Segmentation3DTask
     start_state: Dict[str, torch.Tensor]
-    epochs: List[Dict[str, float]] = dataclasses.field(default_factory=list)
     losses: List[torch.Tensor] = dataclasses.field(default_factory=list)
     schedule: List[Tuple[int, float]] = dataclasses.field(default_factory=list)
     val: Optional[Dict[str, float]] = None
     test: Optional[Dict[str, float]] = None
     full_res: Optional[Dict[str, float]] = None
-    checkpoint: str = ""
-    stopped: bool = False
-    resumed_from: Optional[int] = None
-    skipped: int = 0
-    hbm: Optional[dict] = None
     corpus_bytes: int = 0
 
 
@@ -226,8 +201,6 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
     per_rank = args.batch_size // shard[1]
     if args.device_cache and proc.world_size > 1:
         raise SystemExit(DEVICE_CACHE_SINGLE)
-    if device.type == "cuda":
-        torch.backends.cudnn.benchmark = True
     volume_size, crop = tuple(args.volume_size), tuple(args.crop_size)
     labels = args.arch == "nnunet3d"
 
@@ -239,12 +212,7 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
     ds_train = dataset("train")
     train_loader = VolumeLoader(ds_train, per_rank, shuffle=True, seed=args.seed, num_hosts=shard[1],
                                 host_id=shard[0])
-    if len(train_loader) == 0:
-        raise SystemExit(f"--batch_size {args.batch_size} (per rank {per_rank}) exceeds the train split ({len(ds_train)} volumes): "
-                         "every epoch would run 0 steps. Lower --batch_size to at most the train-set size.")
-    steps_per_epoch = len(train_loader)
-    if args.limit_steps_per_epoch:
-        steps_per_epoch = min(steps_per_epoch, args.limit_steps_per_epoch)
+    steps_per_epoch = epoch_steps(args, len(train_loader), per_rank, f"the train split ({len(ds_train)} volumes)")
 
     hu_windows = parse_hu_windows(args.hu_windows, value_max=1.0) if args.hu_windows else ()
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -260,18 +228,14 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
         byol = load_checkpoint(args.ssl_checkpoint)
         task.model.load_state_dict(load_byol3d_encoder_into_unet3d(task.model.state_dict(), byol["online"]))
         print(f"initialized 3D encoder from {args.ssl_checkpoint}", file=sys.stderr)
-    out = Seg3DRun(task, {k: v.detach().cpu().clone() for k, v in task.model.state_dict().items()})
-
-    aug_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    start_epoch = 0
-    resumed = resume_latest(args.checkpoint_dir, task, train_loader, aug_gen, steps_per_epoch) if args.resume else None
-    if resumed:
-        out.resumed_from, start_epoch, out.skipped = resumed
+    out = Seg3DRun(task=task, start_state={k: v.detach().cpu().clone() for k, v in task.model.state_dict().items()})
+    loop = TrainLoop(args, proc, mesh, task, train_loader, steps_per_epoch, out)
 
     def augment(vols, msks, train: bool):  # eval takes whole crops, replicated over space
-        return segmentation_augment_3d(aug_gen if train else None, vols, msks, out_size=crop, mean=(args.mean,),
-                                       std=(args.std,), train=train, dtype=dtype, hu_windows=hu_windows, shard=shard,
-                                       depth=slab if train else slice(None), labels=labels)
+        return segmentation_augment_3d(loop.aug_gen if train else None, vols, msks, out_size=crop,
+                                       mean=(args.mean,), std=(args.std,), train=train, dtype=dtype,
+                                       hu_windows=hu_windows, shard=shard, depth=slab if train else slice(None),
+                                       labels=labels)
 
     # the eval splits are set up once, before the memory guard, so that its
     # probe runs on top of every corpus the run will keep on the card
@@ -293,14 +257,12 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
 
     def probe():
         vols = torch.zeros(per_rank, *volume_size, 1, device=device)
-        with preserved(task, aug_gen):
-            task.train_step(*augment(vols, vols, train=True))
+        task.train_step(*augment(vols, vols, train=True))
 
     label = f"seg3d train step (batch {per_rank} a rank)"
     if out.corpus_bytes:
         label += f" on top of {out.corpus_bytes / 2**30:.2f} GiB of corpora kept on the device (in the peak)"
-    out.hbm = guard_step(probe, label=label, skip=args.skip_hbm_check, force=args.force_hbm, device=device,
-                         capacity=rank_hbm_capacity(proc.device, proc.ranks_per_device))
+    loop.guard_memory(probe, label)
 
     def run_eval(split: str) -> Optional[Dict[str, float]]:
         ctx = eval_ctx.get(split)
@@ -317,52 +279,28 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
                 n += 1
         return {f"{split}/{k}": v / n for k, v in aggr.items()}
 
-    logger = CSVMetricsLogger(args.log_dir) if main_rank else None
+    def step(vols, msks):
+        metrics = task.train_step(*augment(vols, msks, train=True))
+        out.losses.append(metrics["train/loss"])
+        out.schedule.append((task.step - 1, metrics["lr"]))
+        return metrics
 
-    def checkpoint(next_epoch: int) -> str:
-        return save_rank0(args.checkpoint_dir, trainer_state(task, next_epoch, aug_gen), task.step, mesh)
+    def end_epoch(epoch, metrics, record):
+        if record and loop.logger:
+            print(f"epoch {epoch}: train/loss={record['loss']:.4f} {record['vol_per_s']:.1f} vol/s", file=sys.stderr)
+            loop.log(metrics, epoch)
+        if args.eval_every_epochs and ((epoch + 1) % args.eval_every_epochs == 0 or epoch + 1 == args.max_epochs):
+            out.val = run_eval("val")
+            loop.report(f"epoch {epoch}: ", out.val, epoch)
 
-    with PreemptionGuard(mesh) as guard:
-        for epoch in range(start_epoch, args.max_epochs):
-            skip = out.skipped if epoch == start_epoch else 0
-            t0 = time.time()
-            metrics, done = {}, skip
-            with contextlib.closing(volume_batches(train_loader, device, train_corpus, skip, steps_per_epoch)) as batches:
-                for vols, msks in batches:
-                    metrics = task.train_step(*augment(vols, msks, train=True))
-                    out.losses.append(metrics["train/loss"])
-                    out.schedule.append((task.step - 1, metrics["lr"]))
-                    done += 1
-                    if guard.stop_agreed(done - 1):
-                        out.checkpoint = checkpoint(epoch if done < steps_per_epoch else epoch + 1)
-                        out.stopped = True
-                        return out
-            if guard.stop_agreed(at_epoch_end=True):
-                out.checkpoint, out.stopped = checkpoint(epoch + 1), True
-                return out
-            if metrics:
-                loss = float(metrics["train/loss"])  # waits for the epoch's last step
-                dt = time.time() - t0
-                n_vols = (done - skip) * args.batch_size
-                if logger:
-                    print(f"epoch {epoch}: train/loss={loss:.4f} {n_vols / dt:.1f} vol/s", file=sys.stderr)
-                    logger.log({k: float(v) for k, v in metrics.items()}, step=task.step, epoch=epoch)
-                out.epochs.append({"steps": done - skip, "seconds": dt, "vol_per_s": n_vols / dt, "loss": loss})
-            if args.eval_every_epochs and ((epoch + 1) % args.eval_every_epochs == 0 or epoch + 1 == args.max_epochs):
-                out.val = run_eval("val")
-                if out.val and logger:
-                    print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in out.val.items()),
-                          file=sys.stderr)
-                    logger.log(out.val, step=task.step, epoch=epoch)
-            if (args.checkpoint_every_epochs and (epoch + 1) % args.checkpoint_every_epochs == 0
-                    and epoch + 1 < args.max_epochs):  # the final epoch saves below
-                out.checkpoint = checkpoint(epoch + 1)
+    loop.run(lambda start, stop: volume_batches(train_loader, device, train_corpus, start, stop), step, end_epoch,
+             rate="vol_per_s", loss="train/loss", checkpoint_last=False)
+    if out.stopped:
+        return out
 
     out.test = run_eval("test")
-    if out.test and logger:
-        print("test: " + " ".join(f"{k}={v:.4f}" for k, v in out.test.items()), file=sys.stderr)
-        logger.log(out.test, step=task.step, epoch=args.max_epochs)
-    out.checkpoint = checkpoint(args.max_epochs)
+    loop.report("test: ", out.test, args.max_epochs)
+    loop.checkpoint(args.max_epochs)
 
     if args.full_res_window and main_rank:
         ds_test = eval_ctx["test"][0].ds if eval_ctx["test"] else ds_train  # no test split: the train volumes
@@ -370,9 +308,8 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
             devices = local_devices(args.device) if proc.world_size == 1 else [device]
         out.full_res = _full_res_test(task, ds_test, tuple(args.full_res_window), args.mean, args.std, hu_windows,
                                       device, devices)
-        logger.log(out.full_res, step=task.step, epoch=args.max_epochs)
+        loop.log(out.full_res, args.max_epochs)
     return out
-
 
 def _full_res_test(task, ds, window, mean: float, std: float, hu_windows, device,
                    devices: Sequence = ()) -> Dict[str, float]:

@@ -40,9 +40,8 @@ from medical_image_segmentation_tpu_torch.data import datamodules as tdm
 from medical_image_segmentation_tpu_torch.data.device_feed import device_batches
 from medical_image_segmentation_tpu_torch.data.nifti import write_nifti
 from medical_image_segmentation_tpu_torch.data.store import CODEC_RAW, StoreWriter
-from medical_image_segmentation_tpu_torch.eval.knn import KNNEvaluator
+from medical_image_segmentation_tpu_torch.eval.knn import KNNEvaluator, val_preprocess
 from medical_image_segmentation_tpu_torch.train.byol_task import BYOLTask
-from medical_image_segmentation_tpu_torch.train.train_ssl import _val_preprocess
 
 torch.set_num_threads(2)
 
@@ -176,7 +175,7 @@ def test_ssl_two_processes_with_the_knn_probe(cifar, tmp_path, monkeypatch):
             for ld in loaders:
                 ld.close()
 
-    embed = lambda x: task.embed_step(_val_preprocess(x, dm))  # noqa: E731
+    embed = lambda x: task.embed_step(val_preprocess(x, dm))  # noqa: E731
     acc = KNNEvaluator(num_classes=10, max_bank_size=262144, bank_chunk_size=65536).evaluate(
         embed, interleaved(lambda r: dm.train_loader(2, num_threads=1, seed=0, shard=(r, 2))),
         interleaved(lambda r: dm.val_loader(2, num_threads=1, shard=(r, 2))))
