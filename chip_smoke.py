@@ -18,21 +18,33 @@ exits non-zero and prints no result:
    3.35 TB/s (``bound_needed_us``, the one that counts), the same with the
    whole images (``bound_whole_us``), and the f32 operations over 67
    TFLOP/s; ``share_of_bound`` is the bound over the kernel's time.
-3a. bn_kernels: global BatchNorm's four hand-written kernels
+3a. bn_kernels: training BatchNorm's four hand-written kernels
    (``csrc/global_batchnorm.cu``: statistics, normalize, backward reduce,
-   backward elementwise) at ``byol_r18.ddp4``'s stem (4096 × 64 × 56²) and
-   layer-4 (4096 × 512 × 4²) shapes and its projector's 4096 × 4096, bf16
-   channels-last: each against its plain version (sums within 1e-5 of
+   backward elementwise) at ``byol_r18.ddp4``'s stem (4096 × 64 × 56², also
+   ``byol_r18.device``'s) and layer-4 (4096 × 512 × 4²) shapes and its
+   projector's 4096 × 4096, and at ``unet_r18.train``'s stem (512 × 64 ×
+   112²) and narrowest decoder blocks (512 × 32 × 112², 512 × 16 × 224²),
+   bf16 channels-last: each against its plain version (sums within 1e-5 of
    Σ|v|, the normalized output and dx from the same sums within 1 bf16
    ulp), then timed cold by CUDA events beside its byte bound at 3.35 TB/s
    (each input byte read once, each output byte written once), the plain
    version's time and torch's ``batch_norm_stats`` / ``batch_norm_elemt`` /
    ``batch_norm_backward_reduce`` / ``batch_norm_backward_elemt`` as
-   ``library_ms`` (the port never calls these). The phases after it count
-   the kernels' launches on every path: none in this process (one card,
-   serving, parity, bench), and in each rank of the data-parallel and
-   depth-sharded phases 3 for each BatchNorm forward and 3 for each
-   backward on the global path, counted at the module boundary, with no
+   ``library_ms`` (the port never calls these); then the one-card path's
+   forward (statistics and normalize) and backward (the two backward
+   passes) beside their bounds (3a and 5a) and torch's training
+   ``F.batch_norm`` and its autograd backward (cuDNN, the call the one-card
+   path made before the kernels) as ``library_forward_ms`` and
+   ``library_backward_ms``. The phases after it count the kernels' launches
+   on every path, with each ``BatchNorm`` call counted at the module
+   boundary: in this process (one card, parity, bench) 3 for each
+   training forward and 3 for each backward of a ``BatchNorm`` whose input
+   the kernels take (a CUDA tensor, ``global_batchnorm.takes``), none on
+   the global path and none on the serving paths (the kernels' record
+   counts training calls on the card left to ``F.batch_norm`` as
+   ``library_calls_by_path``); in each rank of the
+   data-parallel and depth-sharded phases the same, and 3 for each
+   BatchNorm forward and 3 for each backward on the global path, with no
    BatchNorm left on local statistics (``dist_byol``: 195 a ResNet-18 BYOL
    step).
 3b. in_kernels: nnU-Net's InstanceNorm + LeakyReLU kernels
@@ -546,8 +558,12 @@ def run_kernel_checks(torch, fa, dm_mod):
     return dict(max_abs_err=max_err, **record)
 
 
-# global BatchNorm at byol_r18.ddp4's shapes: a rank's 4096 views (both views of 2048 images)
-BN_CASES = (("stem", (4096, 64, 56, 56)), ("layer4", (4096, 512, 4, 4)), ("head", (4096, 4096)))
+# training BatchNorm at byol_r18.ddp4's shapes (a rank's 4096 views: both views of 2048 images;
+# byol_r18.device's too), and at unet_r18.train's (512 slices of 224²): the encoder's stem and
+# the decoder's two narrowest blocks, which hold 43% of its BatchNorm bytes
+BN_CASES = (("stem", (4096, 64, 56, 56)), ("layer4", (4096, 512, 4, 4)), ("head", (4096, 4096)),
+            ("unet_stem", (512, 64, 112, 112)), ("unet_dec32", (512, 32, 112, 112)),
+            ("unet_dec16", (512, 16, 224, 224)))
 BN_DEVICE = "cuda"
 BN_STEP_KERNELS = 195  # byol_r18: 43 BatchNorm forwards (21 target, 22 online) and 22 backwards, 3 kernels each
 
@@ -558,8 +574,11 @@ def bn_kernel_bytes(shape, elem: int) -> dict:
     (activation-sized tensors; per-channel vectors at 4 bytes)."""
     c = shape[1]
     a = math.prod(shape) * elem
-    return {"stats": a + 4 * (2 * c + 1), "normalize": 2 * a + 4 * (2 * c + 1 + 4 * c),
+    need = {"stats": a + 4 * (2 * c + 1), "normalize": 2 * a + 4 * (2 * c + 1 + 4 * c),
             "backward_reduce": 2 * a + 4 * 6 * c, "backward_elemt": 3 * a + 4 * (6 * c + 1)}
+    # the one-card path's two directions: what its two passes each way need
+    return dict(need, forward=need["stats"] + need["normalize"],
+                backward=need["backward_reduce"] + need["backward_elemt"])
 
 
 def bn_inputs(torch, shape, seed: int):
@@ -614,30 +633,56 @@ def bn_library_calls(torch, x, dy, w, b, mean, invstd):
                                                                       count)}
 
 
+def bn_training_library(torch, x, dy, w, b):
+    """torch's training ``F.batch_norm`` and its autograd backward on the
+    same activation: the call the one-card path made before the kernels
+    (cuDNN for a channels-last one), the yardstick of its two directions."""
+    import torch.nn.functional as F
+
+    rm, rv = torch.zeros_like(w), torch.ones_like(w)
+    xg, wg, bg = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+    y = F.batch_norm(xg, rm, rv, wg, bg, True, 0.1, 1e-5)
+    return {"forward": lambda: F.batch_norm(xg, rm, rv, wg, bg, True, 0.1, 1e-5),
+            "backward": lambda: torch.autograd.grad(y, (xg, wg, bg), dy, retain_graph=True)}
+
+
 class BatchNormCalls:
     """``BatchNorm``'s calls in training in this process, counted at the
     module boundary: ``forwards`` and ``backwards`` on the global path (a
-    group set; a backward counted when the gradient reaches the output) and
-    ``local`` ones. Global BatchNorm launches 3 kernels for each global
+    group set; a backward counted when the gradient reaches the output),
+    ``local`` ones (no group), and of those ``local_forwards`` and
+    ``local_backwards`` on the one-card kernels (an input that
+    ``global_batchnorm.takes``) and ``local_library``, a CUDA input left to
+    ``F.batch_norm`` (a layout the kernels refuse). Either path launches 3 kernels for each
     forward and 3 for each backward (``ops/global_batchnorm.py``), so
-    ``take`` also reads the wrapper's ``launches``."""
+    ``take`` also reads the wrapper's ``launches`` and ``local_launches``."""
 
     def __init__(self, torch):
         from medical_image_segmentation_tpu_torch.models.batchnorm import BatchNorm
         from medical_image_segmentation_tpu_torch.ops import global_batchnorm
 
         self.gbn = global_batchnorm
-        self.forwards = self.backwards = self.local = 0
+        self.forwards = self.backwards = self.local = self.local_forwards = self.local_backwards = 0
+        self.local_library = 0
         self.mark = self.now()
 
         def on_grad(_):
             self.backwards += 1
+
+        def on_local_grad(_):
+            self.local_backwards += 1
 
         def hook(m, args, out):
             if not (isinstance(m, BatchNorm) and m.training):
                 return
             if m.group is None:
                 self.local += 1
+                if not global_batchnorm.takes(args[0]):
+                    self.local_library += args[0].is_cuda
+                    return
+                self.local_forwards += 1
+                if out.requires_grad:
+                    out.register_hook(on_local_grad)
                 return
             self.forwards += 1
             if out.requires_grad:
@@ -647,7 +692,9 @@ class BatchNormCalls:
 
     def now(self) -> dict:
         return {"launches": self.gbn.launches, "forwards": self.forwards, "backwards": self.backwards,
-                "local": self.local}
+                "local": self.local, "local_launches": self.gbn.local_launches,
+                "local_forwards": self.local_forwards, "local_backwards": self.local_backwards,
+                "local_library": self.local_library}
 
     def take(self) -> dict:
         """The counts since the last ``take``."""
@@ -659,17 +706,30 @@ class BatchNormCalls:
 
 # global BatchNorm's kernel launches by rank, per phase of the data-parallel paths
 BN_RANK_LAUNCHES = {}
+# training BatchNorm calls on the card left to F.batch_norm in this process, by path
+BN_LIBRARY_CALLS = {}
+
+
+def check_local_bn(name: str, counts: dict) -> None:
+    """3 one-card kernels for each local forward and backward on them
+    (``BatchNormCalls.take``)."""
+    forwards, backwards, launches = counts["local_forwards"], counts["local_backwards"], counts["local_launches"]
+    check(launches == 3 * (forwards + backwards),
+          f"{name}: one-card BatchNorm launched {launches} kernels, not 3 × ({forwards} forwards + "
+          f"{backwards} backwards) = {3 * (forwards + backwards)}")
 
 
 def check_global_bn(name: str, counts: dict, global_path: bool = True) -> None:
-    """A rank's global BatchNorm counts (``BatchNormCalls.take``): 3 kernels
-    for each global forward and backward; on a ``global_path`` (more than
-    one rank in BatchNorm's group) no call kept local statistics, else none
-    took the global path."""
+    """A rank's BatchNorm counts (``BatchNormCalls.take``): 3 kernels for
+    each global forward and backward, and for each local one on the
+    one-card kernels; on a ``global_path`` (more than one rank in
+    BatchNorm's group) no call kept local statistics, else none took the
+    global path."""
     derived = 3 * (counts["forwards"] + counts["backwards"])
     check(counts["launches"] == derived,
           f"{name}: global BatchNorm launched {counts['launches']} kernels, not 3 × ({counts['forwards']} "
           f"forwards + {counts['backwards']} backwards) = {derived}")
+    check_local_bn(name, counts)
     if global_path:
         check(counts["local"] == 0, f"{name}: {counts['local']} BatchNorm calls kept their local statistics")
     else:
@@ -677,22 +737,28 @@ def check_global_bn(name: str, counts: dict, global_path: bool = True) -> None:
     BN_RANK_LAUNCHES.setdefault(name.split(" rank ")[0], []).append(counts["launches"])
 
 
-def take_bn_launches(paths: dict, path: str) -> None:
-    """Global BatchNorm's kernel launches in this process since the last
-    take, added to ``paths[path]``: none of this process's paths has a
-    group of more than one rank."""
-    from medical_image_segmentation_tpu_torch.ops import global_batchnorm as gbn
-
-    paths[path] = paths.get(path, 0) + gbn.launches
-    gbn.launches = 0
+def take_bn_launches(calls, paths: dict, path: str) -> None:
+    """BatchNorm's kernel launches in this process since the last take
+    (``calls``, a ``BatchNormCalls``), added to ``paths[path]``: 3 for each
+    forward and backward on the one-card kernels, and none on the global
+    path, as none of this process's paths has a group of more than one
+    rank. ``BN_LIBRARY_CALLS[path]`` counts the training calls on the card
+    left to ``F.batch_norm`` (a layout the kernels refuse)."""
+    counts = calls.take()
+    check(counts["launches"] == 0 and counts["forwards"] == 0,
+          f"{path}: global BatchNorm ran in one process: {counts}")
+    check_local_bn(path, counts)
+    paths[path] = paths.get(path, 0) + counts["local_launches"]
+    BN_LIBRARY_CALLS[path] = BN_LIBRARY_CALLS.get(path, 0) + counts["local_library"]
 
 
 def run_bn_kernels(torch, card: str) -> dict:
-    """Global BatchNorm's kernels against their plain versions, timed beside
-    their bounds, the plain versions and torch's primitives at the BYOL
-    cell's shapes. Returns the kernels-line fields of ``global_batchnorm``;
-    each path's launches are counted where it runs (``BatchNormCalls``,
-    ``take_bn_launches``)."""
+    """Training BatchNorm's kernels against their plain versions, timed
+    beside their bounds, the plain versions and torch's primitives at the
+    BYOL and U-Net cells' shapes, then the one-card path's two directions
+    against torch's training ``F.batch_norm``. Returns the kernels-line
+    fields of ``global_batchnorm``; each path's launches are counted where
+    it runs (``BatchNormCalls``, ``take_bn_launches``)."""
     from medical_image_segmentation_tpu_torch.ops import _kernels
     from medical_image_segmentation_tpu_torch.ops import global_batchnorm as gbn
 
@@ -720,6 +786,10 @@ def run_bn_kernels(torch, card: str) -> dict:
             library = bn_library_calls(torch, x, dy, w, b, mean, invstd)
         except RuntimeError as e:  # a yardstick that does not run here is reported, not fatal
             library = f"refused: {str(e).splitlines()[0][:80]}"
+        # the one-card path's passes as BatchNorm launches them, each direction in one timing
+        kernels["forward"] = lambda: gbn.normalize(x, w, b, gbn.batch_stats(x), 1e-5, 0.9)
+        kernels["backward"] = lambda: gbn.backward_elemt(x, dy, w, mean, invstd,
+                                                         gbn.backward_reduce(x, dy, mean, invstd)[0], n)
         need = bn_kernel_bytes(shape, x.element_size())
         fields = dict(case=name, shape=shape, **errs)
         for part in kernels:  # the kernels first, before the plain versions fill the allocator's cache
@@ -727,7 +797,12 @@ def run_bn_kernels(torch, card: str) -> dict:
             bound_ms = need[part] / HBM_BYTES_PER_S * 1e3
             fields.update({f"{part}_ms": ms, f"{part}_bound_ms": bound_ms, f"{part}_share": bound_ms / ms,
                            f"{part}_bytes": need[part]})
-        for part in kernels:
+        training = bn_training_library(torch, x, dy, w, b)
+        for part, fn in training.items():
+            ms = cold_ms(fn, 10)
+            fields.update({f"library_{part}_ms": ms, f"library_{part}_share": fields[f"{part}_bound_ms"] / ms})
+        del training
+        for part in plain:
             try:
                 fields[f"{part}_library_ms"] = library if isinstance(library, str) else cold_ms(library[part], 10)
             except RuntimeError as e:
@@ -737,7 +812,7 @@ def run_bn_kernels(torch, card: str) -> dict:
         record[name] = {k: v for k, v in fields.items() if k.endswith(("_ms", "_share", "_bytes"))}
         del x, dy, stats, mean, invstd, sums, n, kernels, plain, library
         torch.cuda.empty_cache()
-    gbn.launches = 0  # the paths count from here
+    gbn.launches = gbn.local_launches = 0  # the paths count from here
     return record
 
 
@@ -4103,7 +4178,8 @@ def main(argv=None) -> int:
             run_ab(torch, fa, dm_mod, ab_old_source, card)
             return finish(torch, card, None)
         bn_record = run_bn_kernels(torch, card)
-        bn_paths = {}  # global BatchNorm's launches in this process by path: one card, parity, serving, bench
+        bn_calls = BatchNormCalls(torch)
+        bn_paths = {}  # BatchNorm's kernel launches in this process by path: one card, parity, serving, bench
         in_record = run_in_kernels(torch, card)
         in_paths = {}  # InstanceNorm's launches on the same paths: none runs nnU-Net
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -4112,7 +4188,7 @@ def main(argv=None) -> int:
             run_native_store(workdir, card)
         run_parity(torch)
         run_seg_parity(torch)
-        take_bn_launches(bn_paths, "parity")
+        take_bn_launches(bn_calls, bn_paths, "parity")
         take_in_launches(in_paths, "parity")
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             task, launches, ssl_ckpt, raw_ms = run_trainer(torch, fa, workdir, card)
@@ -4124,7 +4200,7 @@ def main(argv=None) -> int:
             space_launches = space_steps["launches"]
             seg_ckpt = run_seg_train(torch, workdir, ssl_ckpt, card)
             run_predict(torch, workdir, seg_ckpt, card)
-            take_bn_launches(bn_paths, "one_card")
+            take_bn_launches(bn_calls, bn_paths, "one_card")
             take_in_launches(in_paths, "byol_unet2d")
             # the serving path: no TPU kernel lies on it, so none is launched
             before = fa.fused_two_view_augment.launches
@@ -4132,7 +4208,7 @@ def main(argv=None) -> int:
             run_fused2d(torch, workdir, seg_ckpt, card)
             serving_launches = fa.fused_two_view_augment.launches - before
             multicard_launches = run_multicard_2d(torch, fa, workdir, seg_ckpt, card)
-            take_bn_launches(bn_paths, "serving")
+            take_bn_launches(bn_calls, bn_paths, "serving")
             take_in_launches(in_paths, "serving")
             run_seg_step(torch, card)
             run_precrop(torch, fa, workdir, card)
@@ -4146,10 +4222,10 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             raw = run_ingest(torch, fa, workdir, card)
             ingest_launches = fa.fused_two_view_augment.launches
-            take_bn_launches(bn_paths, "one_card")
+            take_bn_launches(bn_calls, bn_paths, "one_card")
             take_in_launches(in_paths, "ingest")
             parity_launches, _ = run_parity_harness(torch, fa, workdir, raw, card)
-            take_bn_launches(bn_paths, "parity")
+            take_bn_launches(bn_calls, bn_paths, "parity")
             take_in_launches(in_paths, "parity")
         # the volumetric path: no TPU kernel lies on it, so none is launched
         fa.fused_two_view_augment.launches = 0
@@ -4163,19 +4239,19 @@ def main(argv=None) -> int:
             run_resume3d(torch, root, workdir, card)
             run_predict3d(torch, root, workdir, seg3d_ckpt, card)
             vol_launches = fa.fused_two_view_augment.launches
-            take_bn_launches(bn_paths, "one_card")
+            take_bn_launches(bn_calls, bn_paths, "one_card")
             take_in_launches(in_paths, "unet3d")
             window_art = run_export3d(torch, root, workdir, seg3d_ckpt, card)
             run_fused3d(torch, root, workdir, seg3d_ckpt, window_art, card)
             serving_launches += fa.fused_two_view_augment.launches - vol_launches
             fa.fused_two_view_augment.launches = vol_launches
             multicard_launches += run_multicard_3d(torch, fa, root, workdir, seg3d_ckpt, card)
-            take_bn_launches(bn_paths, "serving")
+            take_bn_launches(bn_calls, bn_paths, "serving")
             take_in_launches(in_paths, "serving")
             space_launches += run_space_train(torch, fa, root, workdir, space_steps, card)
             fa.fused_two_view_augment.launches = vol_launches
         run_seg3d_step(torch, card)
-        take_bn_launches(bn_paths, "one_card")
+        take_bn_launches(bn_calls, bn_paths, "one_card")
         take_in_launches(in_paths, "unet3d")
         vol_launches = fa.fused_two_view_augment.launches
         check(vol_launches == 0, f"the volumetric path launched two_view_augment {vol_launches} times")
@@ -4185,9 +4261,10 @@ def main(argv=None) -> int:
         bench_launches, bench_values = run_bench_programs(torch, fa, card)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as workdir:
             bench_ranks_launches = run_bench_ranks(torch, fa, workdir, bench_values, card)
-        take_bn_launches(bn_paths, "bench")
+        take_bn_launches(bn_calls, bn_paths, "bench")
         take_in_launches(in_paths, "bench")
-        check(not any(bn_paths.values()), f"global BatchNorm launched on a one-card path: {bn_paths}")
+        bn_calls.handle.remove()
+        check(bn_paths["serving"] == 0, f"BatchNorm's kernels launched {bn_paths['serving']} times on the serving path")
         check(not any(in_paths.values()), f"InstanceNorm's kernels launched off the nnU-Net path: {in_paths}")
         return finish(torch, card, [{"name": "two_view_augment", "route": "cuda", "source": KERNEL_SOURCE,
                                      "replaces": REPLACES, "launches": launches,
@@ -4204,6 +4281,7 @@ def main(argv=None) -> int:
                                     {"name": "global_batchnorm", "route": "cuda", "source": BN_KERNEL_SOURCE,
                                      "replaces": "none: flax's BatchNorm is left to XLA",
                                      **{f"launches_{path}_path": n for path, n in bn_paths.items()},
+                                     "library_calls_by_path": BN_LIBRARY_CALLS,
                                      "launches_by_rank": BN_RANK_LAUNCHES, **bn_record},
                                     {"name": "instance_norm", "route": "cuda", "source": IN_KERNEL_SOURCE,
                                      "replaces": "none: flax's GroupNorm is left to XLA",

@@ -7,7 +7,10 @@
 // the statistics; a float32 x^ then the affine and a cast for the normalize;
 // float32 copies of dy and x, x^ again, a product, two sums and a five-term
 // dx in the backward. Each of those was a pass over device memory with
-// float32 intermediates, ~66 bytes a value forward and ~90 backward.
+// float32 intermediates, ~66 bytes a value forward and ~90 backward. One
+// card's training BatchNorm runs the same four entry points with no
+// all-reduce between them, in place of cuDNN's training batch norm, which
+// reads at 16-59% of the same byte bound (chip_smoke.py's bn_kernels).
 //
 // The input is an (M, C) row-major matrix: a 2-D (N, C) tensor, a 4-D
 // channels_last or a 5-D channels_last_3d one, in bfloat16 or float32. Four

@@ -8,17 +8,24 @@ the port must not inherit from torch:
 - flax updates the running variance with the biased batch variance, torch
   with the unbiased one (× n/(n-1)).
 
-The normalization itself is ``F.batch_norm`` (cuDNN on the card). For the
-running variance we hand it a copy scaled by k = n/(n-1) and scale the
-result back: torch then computes ``k·(m·rv + (1-m)·var_biased)``, so the
-buffer ends at exactly flax's update, with no second pass over the
+On one card (no ``group``) training BatchNorm runs the hand-written
+kernels of ``ops/global_batchnorm.py`` on a CUDA tensor they take
+(``takes``: bf16 or float32, 2-D, channels_last or channels_last_3d):
+statistics, then normalize with flax's running-statistics update in its
+prologue, and in the backward the two sums and dx, with no all-reduce
+between them (``_LocalNormalize``). A CPU tensor, or a card tensor in a
+layout the kernels refuse, keeps ``F.batch_norm`` (cuDNN on the card).
+For its running variance we hand it a copy scaled by k = n/(n-1) and
+scale the result back: torch then computes ``k·(m·rv + (1-m)·var_biased)``,
+so the buffer ends at exactly flax's update, with no second pass over the
 activations to recompute the batch statistics.
 
 Under ``--remat`` (``torch.utils.checkpoint`` around each residual block)
 the block's forward runs a second time during backward. That run sets
-``recomputing``: it normalizes exactly as the first (same kernel, batch
-statistics) but into throwaway copies of the running statistics, so the
-momentum is applied once per step, as flax's ``nn.remat`` does.
+``recomputing``: it normalizes exactly as the first (same kernels, batch
+statistics) but leaves the running statistics alone (or moves throwaway
+copies of them), so the momentum is applied once per step, as flax's
+``nn.remat`` does.
 
 Data-parallel training sets ``group`` (``set_group``): the statistics are
 then the global batch's, as XLA makes them over a sharded batch. The
@@ -29,10 +36,10 @@ gradients stay this rank's sums (the trainer averages every gradient over
 the group afterwards). The running statistics take the global mean and
 biased variance. The passes are ``ops/global_batchnorm.py``'s: the
 hand-written kernels on the card, their plain float32 versions on the CPU.
-With no group (one card) the cuDNN call above runs as before. Under a
-profiler the global path's three parts are spans (``bn.global_stats``,
-``bn.global_normalize``, ``bn.global_backward``, the last on autograd's
-thread); the eval and one-card paths have none.
+Under a profiler the global path's three parts are spans
+(``bn.global_stats``, ``bn.global_normalize``, ``bn.global_backward``, the
+last on autograd's thread) and the one-card kernels' forward is
+``bn.local``; the eval path and ``F.batch_norm`` have none.
 """
 
 from __future__ import annotations
@@ -73,6 +80,8 @@ class BatchNorm(nn.Module):
         n = x.numel() // x.shape[1]
         if n < 2:
             raise ValueError(f"BatchNorm needs more than one value per channel in training, got {n}")
+        if global_batchnorm.takes(x):
+            return _LocalNormalize.apply(x, self.weight, self.bias, self)
         k = n / (n - 1)
         with torch.no_grad():
             scaled_var = self.running_var * k
@@ -113,6 +122,29 @@ class _GlobalNormalize(torch.autograd.Function):
             all_reduce_(sums, ctx.group)
             dx = global_batchnorm.backward_elemt(x, dy, weight, mean, invstd, sums, n)
             return dx, grad_weight, grad_bias, None, None
+
+
+class _LocalNormalize(torch.autograd.Function):
+    """``_GlobalNormalize`` on one card: the statistics are this batch's,
+    with no all-reduce before the normalize or between the backward's
+    passes."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn):
+        with span("bn.local"):
+            stats = global_batchnorm.batch_stats(x, local=True)
+            running = None if bn.recomputing else (bn.running_mean, bn.running_var)
+            y, mean, invstd = global_batchnorm.normalize(x, weight, bias, stats, bn.eps, bn.momentum, running,
+                                                         local=True)
+            ctx.save_for_backward(x, weight, mean, invstd, stats[-1:])
+            return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        sums, grad_weight, grad_bias = global_batchnorm.backward_reduce(x, dy, mean, invstd, local=True)
+        dx = global_batchnorm.backward_elemt(x, dy, weight, mean, invstd, sums, n, local=True)
+        return dx, grad_weight, grad_bias, None
 
 
 def set_group(modules: Iterable[torch.nn.Module], group) -> None:

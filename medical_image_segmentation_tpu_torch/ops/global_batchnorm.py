@@ -1,9 +1,10 @@
-"""Global BatchNorm's four passes: the wrapper of the hand-written Hopper
+"""Training BatchNorm's four passes: the wrapper of the hand-written Hopper
 kernels ``csrc/global_batchnorm.cu`` and their plain PyTorch versions.
 
 Data-parallel training (``models/batchnorm.py`` with a ``group``) takes
 BatchNorm's statistics over every rank's rows, as XLA does over a sharded
-batch. For each layer:
+batch; one card's training (no group) runs the same passes with no
+all-reduce between them. For each layer:
 
 1. ``batch_stats``: this rank's float32 (Σx, Σx², n) in one (2C + 1,)
    buffer, which the caller all-reduces in place;
@@ -23,12 +24,14 @@ bfloat16 or float32 (``kernel_layout``); anything else on the card raises.
 They read and write the activation's dtype and sum in float32. On a CUDA
 tensor each function launches the kernels or raises; on a CPU tensor it
 runs the plain version, the float32 arithmetic that the global path had
-before the kernels. ``launches`` counts kernel launches; under a profiler
-each call also adds them to the ``bn.global_kernels`` counter
-(``core/profiling.py::count``): two for ``batch_stats`` and
-``backward_reduce`` (a pass of partial sums over row slabs, then a
-deterministic pass over the slabs), one for ``normalize`` and
-``backward_elemt``.
+before the kernels (``takes`` says whether a tensor goes to the kernels).
+``launches`` counts the global path's kernel launches and
+``local_launches`` those of calls made with ``local=True`` (one card);
+under a profiler each call also adds them to the ``bn.global_kernels`` or
+``bn.local_kernels`` counter (``core/profiling.py::count``): two for
+``batch_stats`` and ``backward_reduce`` (a pass of partial sums over row
+slabs, then a deterministic pass over the slabs), one for ``normalize``
+and ``backward_elemt``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from medical_image_segmentation_tpu_torch.core.profiling import count
 
 launches = 0
+local_launches = 0
 
 _LAYOUTS = {2: torch.contiguous_format, 4: torch.channels_last, 5: torch.channels_last_3d}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,6 +113,18 @@ def kernel_layout(x: torch.Tensor) -> torch.memory_format:
     return fmt
 
 
+def takes(x: torch.Tensor) -> bool:
+    """Whether ``x`` goes to the kernels as it is: a CUDA tensor whose dtype
+    and layout ``kernel_layout`` takes."""
+    if not x.is_cuda:
+        return False
+    try:
+        kernel_layout(x)
+    except (TypeError, ValueError):
+        return False
+    return True
+
+
 def _on_card(x: torch.Tensor) -> bool:
     if x.is_cuda:
         return True
@@ -158,12 +174,16 @@ def _channels(c: int, device, **tensors) -> None:
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _launched(err: int, what: str, kernels: int) -> None:
-    global launches
+def _launched(err: int, what: str, kernels: int, local: bool = False) -> None:
+    global launches, local_launches
     if err != 0:
         raise RuntimeError(f"global_batchnorm {what} launch failed: CUDA error {err}")
-    launches += kernels
-    count("bn.global_kernels", kernels)
+    if local:
+        local_launches += kernels
+        count("bn.local_kernels", kernels)
+    else:
+        launches += kernels
+        count("bn.global_kernels", kernels)
 
 
 def _geometry(x: torch.Tensor):
@@ -171,8 +191,9 @@ def _geometry(x: torch.Tensor):
     return _aligned(x, fmt), fmt, x.numel() // x.shape[1], x.shape[1]
 
 
-def batch_stats(x: torch.Tensor) -> torch.Tensor:
-    """This rank's float32 [Σx (C), Σx² (C), n] of (N, C, ...) ``x``."""
+def batch_stats(x: torch.Tensor, *, local: bool = False) -> torch.Tensor:
+    """This rank's float32 [Σx (C), Σx² (C), n] of (N, C, ...) ``x``;
+    ``local`` counts the launches as the one-card path's."""
     if not _on_card(x):
         return stats_reference(x)
     x, _, m, c = _geometry(x)
@@ -181,13 +202,13 @@ def batch_stats(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = _lib().mis_gbn_stats(x.data_ptr(), m, c, _DTYPES[x.dtype], work.data_ptr(), work.numel(),
                                    out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    _launched(err, "stats", 2)
+    _launched(err, "stats", 2, local)
     return out
 
 
 def normalize(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stats: torch.Tensor, eps: float,
-              momentum: float, running: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              momentum: float, running: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, *,
+              local: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(y, mean, invstd) from the all-reduced ``stats``; with ``running`` =
     (running_mean, running_var), those take flax's momentum update in place
     (``momentum`` is the share of the old value)."""
@@ -211,18 +232,18 @@ def normalize(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stats: 
             invstd.data_ptr(), None if rm is None else rm.data_ptr(), None if rv is None else rv.data_ptr(),
             float(momentum), float(1.0 - momentum), float(eps), m, c, _DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
-    _launched(err, "normalize", 1)
+    _launched(err, "normalize", 1, local)
     return y, mean, invstd
 
 
-def backward_reduce(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def backward_reduce(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, invstd: torch.Tensor, *,
+                    local: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(sums, grad_weight, grad_bias): this rank's float32 [Σdy (C), Σdy·x̂
     (C)] for the all-reduce, and copies of its two halves."""
     if not _on_card(x):
-        local = backward_reduce_reference(x, dy, mean, invstd)
+        sums = backward_reduce_reference(x, dy, mean, invstd)
         c = x.shape[1]
-        return local, local[c:].clone(), local[:c].clone()
+        return sums, sums[c:].clone(), sums[:c].clone()
     x, fmt, m, c = _geometry(x)
     dy = _gradient(dy, x, fmt)
     _channels(c, x.device, mean=mean, invstd=invstd)
@@ -234,12 +255,13 @@ def backward_reduce(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor, invst
             x.data_ptr(), dy.data_ptr(), mean.data_ptr(), invstd.data_ptr(), m, c, _DTYPES[x.dtype],
             work.data_ptr(), work.numel(), sums.data_ptr(), grad_weight.data_ptr(), grad_bias.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
-    _launched(err, "backward reduce", 2)
+    _launched(err, "backward reduce", 2, local)
     return sums, grad_weight, grad_bias
 
 
 def backward_elemt(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, mean: torch.Tensor,
-                   invstd: torch.Tensor, sums: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+                   invstd: torch.Tensor, sums: torch.Tensor, n: torch.Tensor, *, local: bool = False
+                   ) -> torch.Tensor:
     """dx from the all-reduced [Σdy, Σdy·x̂] and the global count ``n``
     (one float32 value)."""
     if not _on_card(x):
@@ -254,5 +276,5 @@ def backward_elemt(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, mean
         err = _lib().mis_gbn_backward_elemt(
             x.data_ptr(), dy.data_ptr(), weight.data_ptr(), mean.data_ptr(), invstd.data_ptr(), sums.data_ptr(),
             n.data_ptr(), dx.data_ptr(), m, c, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    _launched(err, "backward elemt", 1)
+    _launched(err, "backward elemt", 1, local)
     return dx

@@ -423,15 +423,19 @@ def _chip_smoke(monkeypatch):
 
 
 @pytest.mark.parametrize("mode, forwards, backwards, local", [
-    ("global", 2, 2, 0), ("global_no_grad", 2, 0, 0), ("local", 0, 0, 2), ("eval", 0, 0, 0)])
+    ("global", 2, 2, 0), ("global_no_grad", 2, 0, 0), ("local", 0, 0, 2), ("eval", 0, 0, 0),
+    ("local_kernels", 0, 0, 2), ("local_kernels_no_grad", 0, 0, 2)])
 def test_the_smoke_counts_batchnorm_calls_at_the_module_boundary(monkeypatch, mode, forwards, backwards, local):
     """Global forwards, the backwards that reach them and local calls in
-    training; eval calls are none of these. On the CPU the global path is
-    the plain version, which launches nothing."""
+    training, and of the local ones those whose input the one-card kernels
+    take, with their backwards; eval calls are none of these. On the CPU
+    both kernel paths run the plain versions, which launch nothing."""
     from medical_image_segmentation_tpu_torch.models import batchnorm
 
     smoke = _chip_smoke(monkeypatch)
     monkeypatch.setattr(batchnorm, "all_reduce_", lambda t, group: t)  # a group of one rank
+    if mode.startswith("local_kernels"):
+        monkeypatch.setattr(gbn, "takes", lambda x: True)
     net = torch.nn.Sequential(torch.nn.Linear(4, 8), batchnorm.BatchNorm(8), torch.nn.ReLU(), batchnorm.BatchNorm(8))
     for m in net:
         if isinstance(m, batchnorm.BatchNorm) and mode.startswith("global"):
@@ -439,33 +443,66 @@ def test_the_smoke_counts_batchnorm_calls_at_the_module_boundary(monkeypatch, mo
     net.train(mode != "eval")
     calls = smoke.BatchNormCalls(torch)
     try:
-        with torch.set_grad_enabled(mode != "global_no_grad"):
+        with torch.set_grad_enabled(not mode.endswith("no_grad")):
             y = net(torch.randn(16, 4))
         if y.requires_grad:
             y.square().sum().backward()
-        assert calls.take() == {"launches": 0, "forwards": forwards, "backwards": backwards, "local": local}
-        assert calls.take() == {"launches": 0, "forwards": 0, "backwards": 0, "local": 0}
+        assert calls.take() == {"launches": 0, "forwards": forwards, "backwards": backwards, "local": local,
+                                "local_launches": 0, "local_forwards": local if mode.startswith("local_kernels") else 0,
+                                "local_backwards": local if mode == "local_kernels" else 0,
+                                "local_library": 0}  # CPU inputs
+        assert set(calls.take().values()) == {0}
     finally:
         calls.handle.remove()
 
 
+_BN_COUNTS = ("launches", "forwards", "backwards", "local", "local_launches", "local_forwards", "local_backwards",
+              "local_library")
+
+
 @pytest.mark.parametrize("counts, global_path, error", [
-    ((12, 2, 2, 0), True, None),
-    ((9, 2, 2, 0), True, r"launched 9 kernels, not 3 × \(2 forwards \+ 2 backwards\) = 12"),
-    ((0, 0, 0, 3), True, "3 BatchNorm calls kept their local statistics"),
-    ((0, 0, 0, 3), False, None),
-    ((6, 1, 1, 0), False, "1 BatchNorm calls took the global path"),
+    ((12, 2, 2, 0, 0, 0, 0, 0), True, None),
+    ((9, 2, 2, 0, 0, 0, 0, 0), True, r"launched 9 kernels, not 3 × \(2 forwards \+ 2 backwards\) = 12"),
+    ((0, 0, 0, 3, 0, 0, 0, 0), True, "3 BatchNorm calls kept their local statistics"),
+    ((0, 0, 0, 3, 0, 0, 0, 3), False, None),
+    ((6, 1, 1, 0, 0, 0, 0, 0), False, "1 BatchNorm calls took the global path"),
+    ((0, 0, 0, 3, 9, 2, 1, 1), False, None),  # tp's data group of one rank: the one-card kernels
+    ((0, 0, 0, 3, 6, 2, 1, 1), False, r"one-card BatchNorm launched 6 kernels, not 3 × \(2 forwards"),
 ])
 def test_the_smoke_holds_each_rank_to_three_kernels_a_global_call(monkeypatch, counts, global_path, error):
     smoke = _chip_smoke(monkeypatch)
     monkeypatch.setattr(smoke, "BN_RANK_LAUNCHES", {})
-    counts = dict(zip(("launches", "forwards", "backwards", "local"), counts))
+    counts = dict(zip(_BN_COUNTS, counts))
     if error is None:
         smoke.check_global_bn("dist_seg rank 1", counts, global_path)
         assert smoke.BN_RANK_LAUNCHES == {"dist_seg": [counts["launches"]]}
     else:
         with pytest.raises(smoke.SmokeFailure, match=error):
             smoke.check_global_bn("dist_seg rank 1", counts, global_path)
+
+
+@pytest.mark.parametrize("counts, error", [
+    ((0, 0, 0, 5, 18, 4, 2, 1), None),  # one call on the card left to F.batch_norm
+    ((0, 0, 0, 3, 0, 0, 0, 0), None),  # on the CPU
+    ((0, 0, 0, 4, 12, 4, 2, 0), r"one-card BatchNorm launched 12 kernels, not 3 × \(4 forwards \+ 2 backwards\) = 18"),
+    ((3, 1, 0, 0, 0, 0, 0, 0), "global BatchNorm ran in one process"),
+])
+def test_the_smoke_holds_one_process_to_three_kernels_a_local_call(monkeypatch, counts, error):
+    smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(smoke, "BN_LIBRARY_CALLS", {})
+
+    class Calls:
+        def take(self):
+            return dict(zip(_BN_COUNTS, counts))
+
+    paths = {"one_card": 6}
+    if error is None:
+        smoke.take_bn_launches(Calls(), paths, "one_card")
+        assert paths == {"one_card": 6 + counts[4]}
+        assert smoke.BN_LIBRARY_CALLS == {"one_card": counts[7]}
+    else:
+        with pytest.raises(smoke.SmokeFailure, match=error):
+            smoke.take_bn_launches(Calls(), paths, "one_card")
 
 
 def _f32_ulps(a, b) -> int:
@@ -502,8 +539,34 @@ def test_global_batchnorm_kernels_match_plain_version_on_card(cuda, layout, dtyp
       one rounding to the dtype.
     """
     x, dy = _bn_input(layout, c, dtype, cuda), _bn_input(layout, c, dtype, cuda, seed=1)
+    assert (x.numel() // c) % 2 == 1  # blocks span a power of two of rows: where one spans more, the last is ragged
+    _hold_batchnorm_kernels_to_plain(x, dy)
+
+
+# unet_r18.train's two narrowest decoder blocks (512 slices: 224² × 16 and 112² × 32)
+_BN_UNET_SHAPES = [(512, 16, 224, 224), (512, 32, 112, 112)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _BN_UNET_SHAPES)
+def test_batchnorm_kernels_match_plain_version_at_unet_shapes_on_card(cuda, shape):
+    """The same limits as above at 25.7 M and 6.4 M rows of two 16-byte
+    columns and of four, bf16 channels-last. The sums' longest chain is
+    ~700 additions here, so 1e-5 of Σ|v| holds by the rounding errors'
+    random signs (their sum grows as the chain's root), not for any input."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    view = (1, shape[1], 1, 1)
+    x = torch.randn(shape, generator=gen, device=cuda) * (0.5 + torch.rand(view, generator=gen, device=cuda))
+    x = (x + torch.randn(view, generator=gen, device=cuda)).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    _hold_batchnorm_kernels_to_plain(x, dy)
+
+
+def _hold_batchnorm_kernels_to_plain(x, dy):
+    c, dtype, cuda = x.shape[1], x.dtype, x.device
     m = x.numel() // c
-    assert m % 2 == 1  # blocks span a power of two of rows: where one spans more, the last is ragged
     gen = torch.Generator().manual_seed(2)
     w, b = (torch.rand(c, generator=gen) + 0.5).to(cuda), torch.randn(c, generator=gen).to(cuda)
     xf, dims = x.float(), [0, *range(2, x.ndim)]
