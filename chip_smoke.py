@@ -61,6 +61,12 @@ exits non-zero and prints no result:
    a step (16 norms of three kernels and 6 of one, each direction), the
    ``norm.instance_kernels`` and ``norm.instance_values`` counters, and the
    gradients copied into channels-last a step (``dy_copies_per_step``).
+   Then Swin UNETR's InstanceNorms (no affine, LeakyReLU 0.01 or slope 1,
+   the norm alone) at ``swin_unetr_liver.train``'s shapes, B=4 at 96³ × 48
+   and 3³ × 768 (one kernel a direction), each slope against the plain
+   versions within the same limits, and two of its train steps at 96³,
+   batch 4: 136 kernels a step (21 norms of three kernels and 5 of one,
+   each direction) and both counters.
    The phases after it count the launches on the BYOL and 2D U-Net,
    ingest, parity, serving, ``UNet3D`` (GroupNorm) and bench paths: none.
 3c. native_store: builds the port's native store reader
@@ -824,6 +830,13 @@ IN_EPS, IN_SLOPE = 1e-5, 0.01
 IN_STEP = {"crop": 128, "batch": 2, "steps": 2}
 IN_STEP_KERNELS = 108  # 16 norms of three kernels and 6 of one, forward and backward
 IN_STEP_VALUES = 714_424_320  # values the 22 norms normalize a step
+# Swin UNETR's (no affine; slope 1 where the residual sum comes before the activation) at
+# swin_unetr_liver.train's shapes: 4 crops at 96³ × 48, the largest, and 3³ × 768, one kernel a direction
+IN_SWIN_CASES = (("96x48", (4, 48, 96, 96, 96)), ("3x768", (4, 768, 3, 3, 3)))
+IN_SWIN_SLOPES = (1.0, IN_SLOPE)
+IN_SWIN_STEP = {"crop": 96, "batch": 4, "steps": 2}
+IN_SWIN_STEP_KERNELS = 136  # 21 norms of three kernels and 5 of one, forward and backward
+IN_SWIN_STEP_VALUES = 1_159_723_008  # values the 26 norms normalize a step
 
 
 def in_kernel_bytes(shape, elem: int) -> dict:
@@ -849,42 +862,43 @@ def in_inputs(torch, shape, seed: int):
     return x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
 
 
-def check_in_case(torch, inn, name, x, dy, w, b) -> tuple:
-    """The kernels against their plain versions on one activation: the
-    statistics within 1e-5 (of invstd, and of |mean| + std for the mean),
-    the same bits on a second call, y and dx from the same statistics and
-    sums within 1 bf16 ulp, the sums within 1e-5 of the sums of their terms'
-    magnitudes. Returns the errors and the kernels' outputs for the timing."""
+def check_in_case(torch, inn, name, x, dy, w, b, slope: float = IN_SLOPE) -> tuple:
+    """The kernels against their plain versions on one activation, with
+    LeakyReLU's ``slope``: the statistics within 1e-5 (of invstd, and of
+    |mean| + std for the mean), the same bits on a second call, y and dx
+    from the same statistics and sums within 1 bf16 ulp, the sums within
+    1e-5 of the sums of their terms' magnitudes. Returns the errors and the
+    kernels' outputs for the timing."""
     want_mean, want_invstd = inn.statistics_reference(x, IN_EPS)
     fused = inn.launches_per_call(x) == 1
     if fused:
-        y, mean, invstd = inn.fused_forward(x, w, b, IN_EPS, IN_SLOPE)
-        again = inn.fused_forward(x, w, b, IN_EPS, IN_SLOPE)
+        y, mean, invstd = inn.fused_forward(x, w, b, IN_EPS, slope)
+        again = inn.fused_forward(x, w, b, IN_EPS, slope)
         check(all(torch.equal(u, v) for u, v in zip(again, (y, mean, invstd))),
               f"in_kernels {name}: two forward calls differ")
     else:
         mean, invstd = inn.statistics(x, IN_EPS)
         check(all(torch.equal(u, v) for u, v in zip(inn.statistics(x, IN_EPS), (mean, invstd))),
               f"in_kernels {name}: two statistics calls differ")
-        y = inn.normalize(x, w, b, mean, invstd, IN_SLOPE)
+        y = inn.normalize(x, w, b, mean, invstd, slope)
     mean_err = float(((mean - want_mean).abs() / (want_mean.abs() + 1.0 / want_invstd)).max())
     invstd_err = float(((invstd - want_invstd).abs() / want_invstd).max())
     check(mean_err <= 1e-5 and invstd_err <= 1e-5,
           f"in_kernels {name}: statistics differ from the plain version by {mean_err}, {invstd_err}")
-    y_ulp = bf16_ulps(y, inn.normalize_reference(x, w, b, mean, invstd, IN_SLOPE))
+    y_ulp = bf16_ulps(y, inn.normalize_reference(x, w, b, mean, invstd, slope))
     check(y_ulp <= 1, f"in_kernels {name}: y differs from the plain version by {y_ulp} bf16 ulp")
     if fused:
-        dx, sums, _, _ = inn.fused_backward(x, dy, w, b, mean, invstd, IN_SLOPE)
+        dx, sums, _, _ = inn.fused_backward(x, dy, w, b, mean, invstd, slope)
     else:
-        sums, _, _ = inn.backward_reduce(x, dy, w, b, mean, invstd, IN_SLOPE)
-        dx = inn.backward_elemt(x, dy, w, b, mean, invstd, sums, IN_SLOPE)
-    xhat, g = inn._through(x, dy, w, b, mean, invstd, IN_SLOPE)
+        sums, _, _ = inn.backward_reduce(x, dy, w, b, mean, invstd, slope)
+        dx = inn.backward_elemt(x, dy, w, b, mean, invstd, sums, slope)
+    xhat, g = inn._through(x, dy, w, b, mean, invstd, slope)
     scale = torch.cat([g.abs().sum(1), (g * xhat).abs().sum(1)], dim=1)
     del xhat, g
-    sums_err = float(((sums - inn.backward_reduce_reference(x, dy, w, b, mean, invstd, IN_SLOPE)).abs()
+    sums_err = float(((sums - inn.backward_reduce_reference(x, dy, w, b, mean, invstd, slope)).abs()
                       / scale).max())
     check(sums_err <= 1e-5, f"in_kernels {name}: backward sums differ by {sums_err} of sum |v|")
-    dx_ulp = bf16_ulps(dx, inn.backward_elemt_reference(x, dy, w, b, mean, invstd, sums, IN_SLOPE))
+    dx_ulp = bf16_ulps(dx, inn.backward_elemt_reference(x, dy, w, b, mean, invstd, sums, slope))
     check(dx_ulp <= 1, f"in_kernels {name}: dx differs from the plain version by {dx_ulp} bf16 ulp")
     torch.cuda.synchronize()
     return dict(mean_err=mean_err, invstd_err=invstd_err, y_ulp=y_ulp, sums_err=sums_err, dx_ulp=dx_ulp), \
@@ -901,47 +915,74 @@ def in_library_calls(torch, x, dy, w, b):
             "backward": lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True)}
 
 
-def run_in_step(torch, card: str) -> dict:
-    """nnU-Net's train step at nnunet3d_liver.train's size (128³, batch 2,
-    the published widths, bf16): the kernels it launches a step (the run
-    fails on another count than ``IN_STEP_KERNELS``), the gradients and
-    activations it had to copy into channels-last, and the values it
-    normalizes."""
+def run_in_step(torch, task, step: dict, kernels: int, values: int, label: str) -> dict:
+    """``step["steps"]`` train steps of ``task`` on seeded crops of
+    ``step["crop"]``³, batch ``step["batch"]``, 3-class label maps: the
+    InstanceNorm kernels launched a step, counted from 0 just before each
+    (the run fails on another count than ``kernels``), the
+    ``norm.instance_kernels`` and ``norm.instance_values`` counters of the
+    first (``kernels`` and ``values``), the gradients and activations
+    copied into channels-last, and the losses."""
     from medical_image_segmentation_tpu_torch.core import profiling
-    from medical_image_segmentation_tpu_torch.models.plain_unet3d import nnunet_features
     from medical_image_segmentation_tpu_torch.ops import instance_norm as inn
+
+    gen = torch.Generator(device=IN_DEVICE).manual_seed(5)
+    size = (step["batch"], *(step["crop"],) * 3, 1)
+    x = torch.randn(size, generator=gen, device=IN_DEVICE)
+    labels = torch.randint(0, 3, size, generator=gen, device=IN_DEVICE).float()
+    launches, copies, losses = [], [], []
+    for k in range(step["steps"]):
+        profiling.reset_counters()
+        inn.launches = 0
+        dy_before, x_before = inn.dy_copies, inn.x_copies
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) if k == 0 \
+                else contextlib.nullcontext():
+            losses.append(float(task.train_step(x, labels)["train/loss"]))
+        if k == 0:
+            counted = profiling.counters()
+            check(counted.get("norm.instance_kernels") == kernels and counted.get("norm.instance_values") == values,
+                  f"in_kernels {label} step: counters {counted}")
+        launches.append(inn.launches)
+        copies.append((inn.dy_copies - dy_before, inn.x_copies - x_before))
+    profiling.reset_counters()
+    inn.launches = 0  # the other paths count from here
+    check(all(n == kernels for n in launches),
+          f"the {label} train step launched {launches} InstanceNorm kernels a step, not {kernels}")
+    check(all(math.isfinite(v) for v in losses), f"in_kernels {label} step: losses {losses}")
+    return {"launches_per_step": launches[0], "dy_copies_per_step": copies[0][0], "x_copies_per_step": copies[0][1],
+            "losses": losses}
+
+
+def run_nnunet_step(torch) -> dict:
+    """nnU-Net's train step at nnunet3d_liver.train's size (128³, batch 2,
+    the published widths, bf16)."""
+    from medical_image_segmentation_tpu_torch.models.plain_unet3d import nnunet_features
     from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
 
     task = Segmentation3DTask(arch="nnunet3d", n_classes=3, features=nnunet_features(), loss="dice_ce_ds",
                               learning_rate=0.01, momentum=0.99, weight_decay=3e-5, max_epochs=1000,
                               steps_per_epoch=250, dtype=torch.bfloat16, device=IN_DEVICE)
     task.init(0)
-    gen = torch.Generator(device=IN_DEVICE).manual_seed(5)
-    size = (IN_STEP["batch"], *(IN_STEP["crop"],) * 3, 1)
-    x = torch.randn(size, generator=gen, device=IN_DEVICE)
-    labels = torch.randint(0, 3, size, generator=gen, device=IN_DEVICE).float()
-    launches, copies, losses = [], [], []
-    for step in range(IN_STEP["steps"]):
-        before, dy_before, x_before = inn.launches, inn.dy_copies, inn.x_copies
-        profiling.reset_counters()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) if step == 0 \
-                else contextlib.nullcontext():
-            losses.append(float(task.train_step(x, labels)["train/loss"]))
-        if step == 0:
-            counted = profiling.counters()
-            check(counted.get("norm.instance_kernels") == IN_STEP_KERNELS
-                  and counted.get("norm.instance_values") == IN_STEP_VALUES,
-                  f"in_kernels nnunet step: counters {counted}")
-        launches.append(inn.launches - before)
-        copies.append((inn.dy_copies - dy_before, inn.x_copies - x_before))
-    profiling.reset_counters()
-    check(all(n == IN_STEP_KERNELS for n in launches),
-          f"the nnU-Net train step launched {launches} InstanceNorm kernels a step, not {IN_STEP_KERNELS}")
-    check(all(math.isfinite(v) for v in losses), f"in_kernels nnunet step: losses {losses}")
+    out = run_in_step(torch, task, IN_STEP, IN_STEP_KERNELS, IN_STEP_VALUES, "nnunet")
     del task
     torch.cuda.empty_cache()
-    return {"launches_per_step": launches[0], "dy_copies_per_step": copies[0][0], "x_copies_per_step": copies[0][1],
-            "losses": losses}
+    return out
+
+
+def run_swin_step(torch) -> dict:
+    """Swin UNETR's train step at swin_unetr_liver.train's size (96³, batch
+    4, feature size 48, bf16), in the schedule past its warmup."""
+    from medical_image_segmentation_tpu_torch.train.seg3d_task import Segmentation3DTask
+
+    task = Segmentation3DTask(arch="swin_unetr", n_classes=3, feature_size=48, learning_rate=1e-4,
+                              weight_decay=1e-5, warmup_epochs=50, max_epochs=5000, steps_per_epoch=26,
+                              dtype=torch.bfloat16, device=IN_DEVICE)
+    task.init(0)
+    task.step = 1300
+    out = run_in_step(torch, task, IN_SWIN_STEP, IN_SWIN_STEP_KERNELS, IN_SWIN_STEP_VALUES, "swin_unetr")
+    del task
+    torch.cuda.empty_cache()
+    return out
 
 
 def take_in_launches(paths: dict, path: str) -> None:
@@ -1025,11 +1066,26 @@ def run_in_kernels(torch, card: str) -> dict:
         record[name] = {k: v for k, v in fields.items() if k.endswith(("_ms", "_share", "_bytes"))}
         del x, dy, mean, invstd, sums, kernels, plain, composite, library
         torch.cuda.empty_cache()
-    step = run_in_step(torch, card)
+    for name, shape in IN_SWIN_CASES:
+        x, dy = in_inputs(torch, shape, 0), in_inputs(torch, shape, 1)
+        w, b = torch.ones(shape[1], device=IN_DEVICE), torch.zeros(shape[1], device=IN_DEVICE)  # affine=False
+        for slope in IN_SWIN_SLOPES:
+            errs, _ = check_in_case(torch, inn, f"swin {name} slope {slope}", x, dy, w, b, slope)
+            per, before = inn.launches_per_call(x), inn.launches
+            _, mean, invstd = inn.forward(x, w, b, IN_EPS, slope)
+            inn.backward(x, dy, w, b, mean, invstd, slope)
+            check(inn.launches - before == 2 * per,
+                  f"in_kernels swin {name}: {inn.launches - before} launches, not 2 × {per}")
+            phase("in_kernels", case=f"swin_{name}", shape=shape, affine=False, slope=slope, launches_forward=per,
+                  launches_backward=per, **errs, card=repr(card))
+        del x, dy, mean, invstd
+        torch.cuda.empty_cache()
+    step = run_nnunet_step(torch)
     phase("in_kernels", case="nnunet_step", **step, card=repr(card))
-    inn.launches = 0  # the other paths count from here
+    swin = run_swin_step(torch)
+    phase("in_kernels", case="swin_unetr_step", **swin, card=repr(card))
     return dict(launches_nnunet_train_path=step["launches_per_step"], dy_copies_per_step=step["dy_copies_per_step"],
-                **record)
+                launches_swin_unetr_train_path=swin["launches_per_step"], **record)
 
 
 def run_ab(torch, fa, dm_mod, old_source: str, card: str) -> None:

@@ -50,20 +50,29 @@ def nnunet_features(base: int = 32, stages: int = 6, cap: int = 320) -> tuple:
 
 
 class InstanceNorm3D(nn.Module):
-    """Affine InstanceNorm over dim 1 of (B, C, D, H, W), then LeakyReLU."""
+    """InstanceNorm over dim 1 of (B, C, D, H, W), then LeakyReLU of
+    ``slope``. ``affine=False`` (MONAI's ``"instance"`` norm) holds the scale
+    at 1 and the shift at 0 as buffers outside the state dict; ``slope=1``
+    is the norm alone, with no activation."""
 
-    def __init__(self, channels: int, eps: float = INSTANCE_NORM_EPS):
+    def __init__(self, channels: int, eps: float = INSTANCE_NORM_EPS, affine: bool = True,
+                 slope: float = NEGATIVE_SLOPE):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.slope = slope
+        if affine:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+        else:
+            self.register_buffer("weight", torch.ones(channels), persistent=False)
+            self.register_buffer("bias", torch.zeros(channels), persistent=False)
         self.recomputing = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("norm.instance"):
             if not self.recomputing:
                 count("norm.instance_values", x.numel())
-            return instance_norm_leaky_relu(x, self.weight, self.bias, self.eps, NEGATIVE_SLOPE)
+            return instance_norm_leaky_relu(x, self.weight, self.bias, self.eps, self.slope)
 
 
 class PlainBlock3D(nn.Module):

@@ -15,6 +15,10 @@
   (nearest neighbour, ``s`` the output's stride), and skips a weight of 0.
 - ``per_class_dice`` / ``per_class_jaccard``: hard scores of the argmax
   against the label map, one a foreground class, smooth 1 and 1e-6.
+- ``dice_ce_softmax``: MONAI's ``DiceCELoss(to_onehot_y=True,
+  softmax=True, squared_pred=True, smooth_nr=0, smooth_dr=1e-6)`` (Swin
+  UNETR's): the Dice of each sample and class, background included, with
+  squared denominators, averaged, plus the voxels' mean cross-entropy.
 
 Every sum is taken in f32 whatever the input dtype.
 
@@ -110,6 +114,22 @@ def softmax_dice_ce(logits: torch.Tensor, labels: torch.Tensor, smooth: float = 
     logp = torch.log_softmax(z, dim=-1)
     ce = F.nll_loss(logp.reshape(-1, k), labels.reshape(-1).long())
     return ce - _dice(_class_sums(logp[..., 1:].exp(), _class_hits(labels, k), group), smooth).mean()
+
+
+def dice_ce_softmax(logits: torch.Tensor, labels: torch.Tensor, group=None) -> torch.Tensor:
+    """``logits`` (B, ..., K) channels-last, ``labels`` (B, ..., 1) with
+    values in 0..K−1: mean over samples and classes of ``1 − 2Σpg / (Σp² +
+    Σg² + 1e-6)``, plus the mean cross-entropy, in f32. Each sample's Dice
+    is its own, so under a group this is the rank's mean, whose mean over
+    the group is the global one: no sum crosses ranks."""
+    z = logits.float()
+    b, k = z.shape[0], z.shape[-1]
+    logp = torch.log_softmax(z, dim=-1).reshape(b, -1, k)
+    y = labels.reshape(b, -1).long()
+    p = logp.exp()
+    g = F.one_hot(y, k).float()
+    dice = 1.0 - 2.0 * (p * g).sum(1) / ((p * p).sum(1) + g.sum(1) + 1e-6)
+    return dice.mean() + F.nll_loss(logp.reshape(-1, k), y.reshape(-1))
 
 
 def softmax_dice_loss(logits: torch.Tensor, labels: torch.Tensor, smooth: float = 1e-5, group=None) -> torch.Tensor:

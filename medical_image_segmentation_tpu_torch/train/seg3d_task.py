@@ -26,6 +26,14 @@ does not apply: its norm is InstanceNorm), trained on integer label maps
 with nnU-Net's optimizer and schedule (SGD-Nesterov with clipping, poly)
 and its loss, ``loss="dice_ce_ds"``; it refuses a mesh with more than one
 ``space`` rank.
+
+``arch="swin_unetr"`` builds Swin UNETR (``models/swin_unetr.py``) at
+``feature_size`` with the published depths (2, 2, 2, 2), heads (3, 6, 12,
+24) and window 7, trained on integer label maps with its recipe: MONAI's
+squared softmax Dice + CE (``ops/dice.py::dice_ce_softmax``), AdamW and
+the warmup-cosine schedule ending at 0 (``features``, ``norm``, ``loss``
+and ``min_lr`` do not apply); it too refuses a mesh with more than one
+``space`` rank.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import Iterator, Sequence
 import torch
 
 from medical_image_segmentation_tpu_torch.models.plain_unet3d import PlainConvUNet3D
+from medical_image_segmentation_tpu_torch.models.swin_unetr import SwinUNETR3D
 from medical_image_segmentation_tpu_torch.models.unet3d import UNet3D, set_space_group
 from medical_image_segmentation_tpu_torch.train.segmentation_task import SegmentationTask
 
@@ -60,11 +69,16 @@ class Segmentation3DTask(SegmentationTask):
         remat: bool = False,
         mesh=None,
         arch: str = "unet3d",
+        feature_size: int = 48,
     ):
-        if arch == "nnunet3d":
-            if mesh is not None and mesh.size("space") > 1:
-                raise ValueError("arch 'nnunet3d' does not support depth sharding (a space group of "
-                                 f"{mesh.size('space')} ranks)")
+        if arch in ("nnunet3d", "swin_unetr") and mesh is not None and mesh.size("space") > 1:
+            raise ValueError(f"arch {arch!r} does not support depth sharding (a space group of "
+                             f"{mesh.size('space')} ranks)")
+        if arch == "swin_unetr":
+            net_cls, net_kw = SwinUNETR3D, dict(in_channels=in_channels, n_classes=n_classes,
+                                                feature_size=feature_size, remat=remat)
+            loss, optimizer, schedule, min_lr = "dice_ce_softmax", "adamw", "warmup_cosine", 0.0
+        elif arch == "nnunet3d":
             if loss != "dice_ce_ds":
                 raise ValueError(f"arch 'nnunet3d' trains with loss 'dice_ce_ds', not {loss!r}")
             net_cls, net_kw = PlainConvUNet3D, dict(in_channels=in_channels, n_classes=n_classes,
@@ -75,7 +89,7 @@ class Segmentation3DTask(SegmentationTask):
                                            norm=norm, remat=remat)
             optimizer, schedule = "lars", "warmup_cosine"
         else:
-            raise ValueError(f"arch must be 'unet3d' or 'nnunet3d', got {arch!r}")
+            raise ValueError(f"arch must be 'unet3d', 'nnunet3d' or 'swin_unetr', got {arch!r}")
         self._build(net_cls, net_kw, torch.channels_last_3d, learning_rate, weight_decay, momentum, warmup_epochs,
                     max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh, optimizer, schedule)
         self._space_group = mesh.group("space") if mesh is not None else None

@@ -12,6 +12,10 @@
   parameters, loss and metrics;
 - ``remat`` checkpoints each residual block of the encoder;
   ``state_dict``/``load_state_dict`` carry the model, optimizer and step;
+- Swin UNETR's recipe (``arch="swin_unetr"`` there): ``loss="dice_ce_softmax"``
+  (MONAI's squared softmax Dice + CE, no deep supervision) and
+  ``optimizer="adamw"`` (torch's AdamW, betas 0.9/0.999, eps 1e-8, every
+  parameter decayed) on the warmup-cosine schedule;
 - nnU-Net's recipe (``train/seg3d_task.py``'s ``arch="nnunet3d"``):
   ``loss="dice_ce_ds"`` (softmax Dice + CE over the deep-supervision
   outputs, ``ops/dice.py``), ``optimizer="sgd_nesterov"`` (torch's SGD
@@ -44,8 +48,8 @@ from medical_image_segmentation_tpu_torch.core.profiling import span
 from medical_image_segmentation_tpu_torch.models.batchnorm import set_group
 from medical_image_segmentation_tpu_torch.models.unet import UNet
 from medical_image_segmentation_tpu_torch.ops.dice import (
-    deep_supervised_dice_ce, deep_supervision_weights, dice_ce, dice_coefficient, dice_loss, jaccard_index,
-    per_class_dice, per_class_jaccard, post_process_masks, softmax_dice_loss,
+    deep_supervised_dice_ce, deep_supervision_weights, dice_ce, dice_ce_softmax, dice_coefficient, dice_loss,
+    jaccard_index, per_class_dice, per_class_jaccard, post_process_masks, softmax_dice_loss,
 )
 from medical_image_segmentation_tpu_torch.ops.lars import LARS
 from medical_image_segmentation_tpu_torch.ops.schedules import linear_warmup_cosine_annealing, poly
@@ -82,10 +86,10 @@ class SegmentationTask:
                max_epochs, min_lr, steps_per_epoch, loss, dtype, device, mesh=None, optimizer: str = "lars",
                schedule: str = "warmup_cosine") -> None:
         """Everything but the choice of network, which ``train/seg3d_task.py`` makes differently."""
-        if loss not in ("dice", "dice_ce", "dice_ce_ds"):
-            raise ValueError(f"loss must be 'dice', 'dice_ce' or 'dice_ce_ds', got {loss!r}")
-        if optimizer not in ("lars", "sgd_nesterov"):
-            raise ValueError(f"optimizer must be 'lars' or 'sgd_nesterov', got {optimizer!r}")
+        if loss not in ("dice", "dice_ce", "dice_ce_ds", "dice_ce_softmax"):
+            raise ValueError(f"loss must be 'dice', 'dice_ce', 'dice_ce_ds' or 'dice_ce_softmax', got {loss!r}")
+        if optimizer not in ("lars", "sgd_nesterov", "adamw"):
+            raise ValueError(f"optimizer must be 'lars', 'sgd_nesterov' or 'adamw', got {optimizer!r}")
         if schedule not in ("warmup_cosine", "poly"):
             raise ValueError(f"schedule must be 'warmup_cosine' or 'poly', got {schedule!r}")
         self.device = torch.device(device)
@@ -95,8 +99,10 @@ class SegmentationTask:
         self.dtype = dtype
         self._net_cls, self._net_kw = net_cls, net_kw
         self.model = net_cls(**net_kw).to(self.device, memory_format=memory_format)
-        self.multiclass = loss == "dice_ce_ds"
-        if self.multiclass:
+        self.multiclass = loss in ("dice_ce_ds", "dice_ce_softmax")
+        if loss == "dice_ce_softmax":
+            self._loss = dice_ce_softmax
+        elif self.multiclass:
             if not getattr(self.model, "deep_supervision", False):
                 raise ValueError(f"loss 'dice_ce_ds' needs a deep-supervised network, not {net_cls.__name__}")
             weights = deep_supervision_weights(len(self.model.features) - 1)
@@ -117,6 +123,9 @@ class SegmentationTask:
         if optimizer == "sgd_nesterov":
             self.optimizer = torch.optim.SGD(self.model.parameters(), lr=0.0, momentum=momentum, nesterov=True,
                                              weight_decay=weight_decay, foreach=True)
+        elif optimizer == "adamw":
+            self.optimizer = torch.optim.AdamW(self.model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                                               weight_decay=weight_decay, foreach=True)
         else:
             self.optimizer = LARS(self.model.parameters(), lr=0.0, weight_decay=weight_decay, momentum=momentum)
         self.step = 0

@@ -39,6 +39,17 @@ default. bf16 autocast stands in for nnU-Net's fp16 with a gradient
 scaler. It refuses ``--space_shards`` above 1, ``--ssl_checkpoint`` and
 ``--full_res_window``.
 
+``--arch swin_unetr --classes K`` trains Swin UNETR (``models/swin_unetr.py``
+at its published size: feature size 48, depths 2 2 2 2, heads 3 6 12 24,
+window 7; crops a multiple of 32 on each axis) on the integer label maps
+with its fine-tuning recipe (Tang et al.'s CT settings): MONAI's squared
+softmax Dice + CE, AdamW, the warmup-cosine schedule ending at 0; flags
+left unset take its values (``--learning_rate 1e-4``, ``--weight_decay
+1e-5``, ``--warmup_epochs 50``, ``--max_epochs 5000``, ``--min_lr 0``). It
+refuses ``--features`` (its widths are the published ones), ``--loss``
+(its loss is the recipe's), ``--space_shards`` above 1,
+``--ssl_checkpoint`` and ``--full_res_window``.
+
 Several processes (torchrun or SLURM, ``parallel/mesh.py``): the global
 ``--batch_size`` divides by the data shards; each rank reads its data
 shard of the volumes (``VolumeLoader(num_hosts=data shards,
@@ -88,9 +99,11 @@ DEVICE_CACHE_SINGLE = ("--device_cache is single-process only (a per-host corpus
                        "shuffle); use --cache_volumes on multi-host runs")
 
 
-# nnU-Net's recipe: what --arch nnunet3d takes for the flags left unset
+# nnU-Net's and Swin UNETR's recipes: what --arch nnunet3d and --arch swin_unetr take for the flags left unset
 NNUNET_DEFAULTS = dict(learning_rate=0.01, weight_decay=3e-5, features=(32, 64, 128, 256, 320, 320),
                        loss="dice_ce_ds")
+SWIN_DEFAULTS = dict(learning_rate=1e-4, weight_decay=1e-5, warmup_epochs=50, max_epochs=5000, min_lr=0.0)
+ARCH_DEFAULTS = {"nnunet3d": NNUNET_DEFAULTS, "swin_unetr": SWIN_DEFAULTS}
 NNUNET_MOMENTUM = 0.99
 _UNSET = object()
 
@@ -106,11 +119,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="device-side random train crop (centre crop at eval)")
     ap.add_argument("--batch_size", type=int, default=4)
     ap.add_argument("--max_epochs", type=int, default=50)
-    ap.add_argument("--arch", default="unet3d", choices=["unet3d", "nnunet3d"],
-                    help="unet3d (the JAX package's 3D U-Net) or nnunet3d (nnU-Net's 3d_fullres PlainConvUNet, "
-                         "multi-class, deep supervision; the flags left unset take nnU-Net's values)")
+    ap.add_argument("--arch", default="unet3d", choices=["unet3d", "nnunet3d", "swin_unetr"],
+                    help="unet3d (the JAX package's 3D U-Net), nnunet3d (nnU-Net's 3d_fullres PlainConvUNet, "
+                         "multi-class, deep supervision) or swin_unetr (Swin UNETR, multi-class); under the last "
+                         "two the flags left unset take their recipe's values")
     ap.add_argument("--classes", type=int, default=1,
-                    help="classes of the label maps, background included (nnunet3d: at least 2)")
+                    help="classes of the label maps, background included (nnunet3d, swin_unetr: at least 2)")
     ap.add_argument("--min_lr", type=float, default=1e-2)
     ap.add_argument("--warmup_epochs", type=int, default=10)
     ap.add_argument("--features", type=int, nargs="+", default=(32, 64, 128, 256))
@@ -149,17 +163,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="run even if the probe step, on top of what already lives on the card, does not fit "
                          "its memory: the guard then warns instead of refusing")
     add_common_flags(ap)
-    args = ap.parse_args(argv, argparse.Namespace(**{k: _UNSET for k in NNUNET_DEFAULTS}))
-    for key, value in NNUNET_DEFAULTS.items():  # a flag left unset: its default, or nnU-Net's value
+    unset = {k for d in ARCH_DEFAULTS.values() for k in d}
+    args = ap.parse_args(argv, argparse.Namespace(**{k: _UNSET for k in unset}))
+    given = {flag: getattr(args, flag) is not _UNSET for flag in ("features", "loss")}
+    recipe = ARCH_DEFAULTS.get(args.arch, {})
+    for key in unset:  # a flag left unset: its default, or the arch's recipe's value
         if getattr(args, key) is _UNSET:
-            setattr(args, key, value if args.arch == "nnunet3d" else ap.get_default(key))
-    if args.arch == "nnunet3d":
-        for flag, bad in (("--space_shards", args.space_shards > 1), ("--ssl_checkpoint", args.ssl_checkpoint),
-                          ("--full_res_window", args.full_res_window)):
+            setattr(args, key, recipe.get(key, ap.get_default(key)))
+    if args.arch in ARCH_DEFAULTS:
+        refused = [("--space_shards", args.space_shards > 1), ("--ssl_checkpoint", args.ssl_checkpoint),
+                   ("--full_res_window", args.full_res_window)]
+        if args.arch == "swin_unetr":
+            refused[:0] = [("--features", given["features"]), ("--loss", given["loss"])]
+        for flag, bad in refused:
             if bad:
-                ap.error(f"--arch nnunet3d does not support {flag}")
+                ap.error(f"--arch {args.arch} does not support {flag}")
         if args.classes < 2:
-            ap.error("--arch nnunet3d needs --classes of at least 2 (background included)")
+            ap.error(f"--arch {args.arch} needs --classes of at least 2 (background included)")
     elif args.classes != 1:
         ap.error("--arch unet3d trains one sigmoid class: --classes must be 1")
     return args
@@ -202,7 +222,7 @@ def run(argv: Optional[Sequence[str]] = None, devices: Optional[Sequence] = None
     if args.device_cache and proc.world_size > 1:
         raise SystemExit(DEVICE_CACHE_SINGLE)
     volume_size, crop = tuple(args.volume_size), tuple(args.crop_size)
-    labels = args.arch == "nnunet3d"
+    labels = args.arch in ARCH_DEFAULTS
 
     def dataset(split: str) -> DecathlonVolumeDataset:
         return DecathlonVolumeDataset(args.images_dir, args.masks_dir, target_shape=volume_size,

@@ -361,6 +361,12 @@ def test_the_smokes_byte_counts_stated_launches_and_paths(monkeypatch):
     assert need["stats"] == a + 8 * 64 and need["normalize"] == 2 * a + 8 * 64 + 8 * 32
     assert need["backward_elemt"] == 3 * a + 16 * 64 + 8 * 32 and need["fused_backward"] == 3 * a + 16 * 64 + 16 * 32
     assert chip_smoke.IN_STEP_KERNELS == 2 * 54 and chip_smoke.IN_STEP_VALUES == 2 * 357_212_160
+    # Swin UNETR at 96³, F = 48: 5 norms at or under 1,024 voxels (3³ and 6³) of one kernel, 21 of three
+    f, v = 48, lambda level: (96 // 2 ** level) ** 3
+    per_crop = (3 * f * v(0) + 2 * f * v(1) + 2 * 2 * f * v(2) + 2 * 4 * f * v(3) + 2 * 16 * f * v(5)
+                + 3 * 8 * f * v(4) + 3 * 4 * f * v(3) + 3 * 2 * f * v(2) + 3 * f * v(1) + 3 * f * v(0))
+    assert chip_smoke.IN_SWIN_STEP_KERNELS == 2 * (5 + 3 * 21) and chip_smoke.IN_SWIN_STEP_VALUES == 4 * per_crop
+    assert [inn.launches_per_call(torch.empty(s, device="meta")) for _, s in chip_smoke.IN_SWIN_CASES] == [3, 1]
     monkeypatch.setattr(inn, "launches", 5)
     paths = {"unet3d": 1}
     chip_smoke.take_in_launches(paths, "unet3d")
